@@ -1,0 +1,222 @@
+"""Fused forward STFT and fused masked iSTFT-to-audio: wrappers, plain
+versions and launch counts.
+
+Two kernels written for Hopper in CUDA C++ (csrc/stft.cu, csrc/istft.cu;
+built by kernels/_build.py) replace the reference package's Pallas kernels
+spleeterrt_tpu/kernels/stft_fused.py::_stft_kernel and ::_mistft_kernel.
+They compute what those compute, not how: the spectrum is stored as plain
+complex bins (rows, frames, 2049), the magnitude is written straight into
+the U-Net's NCHW tiles, and the masks are read in the layout the U-Net
+emits, (S, n_tiles, rows, time_step, bin_limit).
+
+Each wrapper checks device, dtype, shape and contiguity. A tensor on the
+CPU goes to the plain version (`*_plain`, torch.fft) beside it; a CUDA
+tensor launches the kernel or raises. Each wrapper's `launches` attribute
+is a plain integer that counts its kernel launches (never plain calls), so
+a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from spleeterrt_tpu_torch.config import TransformConfig
+from spleeterrt_tpu_torch.core.transform import overlap_add
+from spleeterrt_tpu_torch.kernels import _build
+
+N = 4096
+HOP = 1024  # the reference's only hop (Executable/stftFix.h:14-18)
+N_BINS = N // 2 + 1
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load()
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.spleeterrt_stft4096.argtypes = [p, ll, ll, p, p, i, i, i, i, p, p, p]
+    lib.spleeterrt_stft4096.restype = i
+    lib.spleeterrt_masked_istft4096.argtypes = [
+        p, p, p, p, p, i, ll, i, i, i, i, i, p, p,
+    ]
+    lib.spleeterrt_masked_istft4096.restype = i
+    return lib
+
+
+@functools.cache
+def _twiddles(device: torch.device) -> torch.Tensor:
+    """tw[j] = exp(-2 pi i j / 4096), j < 2048: float64 math, one rounding."""
+    tw = np.exp(-2j * np.pi * np.arange(N // 2) / N).astype(np.complex64)
+    return torch.from_numpy(tw).to(device)
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
+    if t.dtype != dtype or t.ndim != ndim:
+        raise ValueError(
+            f"{name}: expected a {ndim}-D {dtype} tensor, got {t.ndim}-D {t.dtype}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(fn, *args) -> None:
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
+
+
+# ---------------------------------------------------------------------------
+# Forward: audio -> complex spectrum + magnitude tiles
+# ---------------------------------------------------------------------------
+
+
+def stft4096_plain(
+    audio: torch.Tensor, window: torch.Tensor, n_comp: int, n_req: int,
+    bin_limit: int, time_step: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`stft4096` (torch.fft)."""
+    rows, data_size = audio.shape
+    need = (n_comp - 1) * HOP + N
+    x = torch.nn.functional.pad(audio, (0, max(0, need - data_size)))[:, :need]
+    frames = x.unfold(-1, N, HOP)  # (rows, n_comp, N)
+    spec = torch.zeros(
+        (rows, n_req, N_BINS), dtype=torch.complex64, device=audio.device
+    )
+    spec[:, :n_comp] = torch.fft.rfft(frames * window, n=N, dim=-1)
+    nt = n_req // time_step
+    mag = (
+        spec[..., :bin_limit].abs()
+        .reshape(rows, nt, time_step, bin_limit)
+        .transpose(0, 1)
+        .contiguous()
+    )
+    return spec, mag
+
+
+def stft4096(
+    audio: torch.Tensor,  # (rows, data_size) float32
+    window: torch.Tensor,  # (4096,) analysis window
+    n_comp: int,  # frames computed; frames in [n_comp, n_req) are zero
+    n_req: int,  # frames out, a multiple of time_step
+    bin_limit: int,
+    time_step: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (spec, mag): spec (rows, n_req, 2049) complex64, the rfft of each
+    hop-1024 frame times `window`; mag (n_req // time_step, rows,
+    time_step, bin_limit) float32, |spec| on bins < bin_limit in the
+    U-Net's NCHW tile layout."""
+    dev = audio.device
+    _check(audio, "audio", torch.float32, 2, dev)
+    _check(window, "window", torch.float32, 1, dev)
+    rows, data_size = audio.shape
+    if window.shape[0] != N:
+        raise ValueError(f"window must have {N} samples")
+    if not (0 < n_comp <= n_req) or n_req % time_step:
+        raise ValueError("need 0 < n_comp <= n_req and time_step | n_req")
+    if not 0 < bin_limit <= N_BINS:
+        raise ValueError(f"bin_limit must be in (0, {N_BINS}]")
+    if dev.type == "cpu":
+        return stft4096_plain(audio, window, n_comp, n_req, bin_limit, time_step)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    spec = torch.empty((rows, n_req, N_BINS), dtype=torch.complex64, device=dev)
+    mag = torch.empty(
+        (n_req // time_step, rows, time_step, bin_limit), dtype=torch.float32,
+        device=dev,
+    )
+    with torch.cuda.device(dev):
+        _launch(
+            _lib().spleeterrt_stft4096,
+            audio.data_ptr(), rows, data_size, window.data_ptr(),
+            _twiddles(dev).data_ptr(), n_comp, n_req, bin_limit, time_step,
+            spec.data_ptr(), mag.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    stft4096.launches += 1
+    return spec, mag
+
+
+stft4096.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Inverse: spectrum + per-stem masks -> overlap-added audio
+# ---------------------------------------------------------------------------
+
+
+def masked_istft4096_plain(
+    spec: torch.Tensor, masks: torch.Tensor, out_band: torch.Tensor,
+    window: torch.Tensor, n_frames: int,
+) -> torch.Tensor:
+    """Plain version of :func:`masked_istft4096` (torch.fft)."""
+    s, nt, rows, t, f = masks.shape
+    m = masks.transpose(1, 2).reshape(s, rows, nt * t, f)[:, :, :n_frames]
+    x = spec[:, :n_frames]
+    y = torch.cat(
+        [x[..., :f] * m, x[..., f:] * out_band[:, None, None, None]], dim=-1
+    )
+    # irfft semantics: the imaginary parts of DC and Nyquist are dropped.
+    y[..., 0].imag.zero_()
+    y[..., -1].imag.zero_()
+    frames = torch.fft.irfft(y, n=N, dim=-1) * window
+    return overlap_add(frames, TransformConfig(N, N // HOP))
+
+
+def masked_istft4096(
+    spec: torch.Tensor,  # (rows, >= n_frames, 2049) complex64
+    masks: torch.Tensor,  # (S, n_tiles, rows, time_step, bin_limit) float32
+    out_band: torch.Tensor,  # (S,) float32 weight of bins >= bin_limit
+    window: torch.Tensor,  # (4096,) synthesis window
+    n_frames: int,
+) -> torch.Tensor:
+    """-> (S, rows, n_frames*1024 + 3072) float32 audio: for each stem s,
+    overlap_add(irfft(spec * blend(mask_s, out_band_s)) * window), where
+    frame f reads mask row masks[s, f // time_step, :, f % time_step]."""
+    dev = spec.device
+    _check(spec, "spec", torch.complex64, 3, dev)
+    _check(masks, "masks", torch.float32, 5, dev)
+    _check(out_band, "out_band", torch.float32, 1, dev)
+    _check(window, "window", torch.float32, 1, dev)
+    rows, n_spec, bins = spec.shape
+    s, nt, mrows, t, f = masks.shape
+    if bins != N_BINS or window.shape[0] != N:
+        raise ValueError(f"spec needs {N_BINS} bins and window {N} samples")
+    if mrows != rows or out_band.shape[0] != s or not 0 < f <= N_BINS:
+        raise ValueError("masks, spec and out_band disagree on rows or stems")
+    if not 0 < n_frames <= min(n_spec, nt * t):
+        raise ValueError("n_frames exceeds the frames of spec or masks")
+    if dev.type == "cpu":
+        return masked_istft4096_plain(spec, masks, out_band, window, n_frames)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty(
+        (s, rows, n_frames * HOP + N - HOP), dtype=torch.float32, device=dev
+    )
+    with torch.cuda.device(dev):
+        _launch(
+            _lib().spleeterrt_masked_istft4096,
+            spec.data_ptr(), masks.data_ptr(), out_band.data_ptr(),
+            window.data_ptr(), _twiddles(dev).data_ptr(), s, rows, n_frames,
+            n_spec, nt, t, f, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    masked_istft4096.launches += 1
+    return out
+
+
+masked_istft4096.launches = 0
+WRAPPERS = (stft4096, masked_istft4096)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

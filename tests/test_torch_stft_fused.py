@@ -1,0 +1,175 @@
+"""The fused STFT / masked iSTFT wrappers' plain versions against the JAX
+package's Pallas kernels (run in interpret mode, as tests/test_stft_fused.py
+runs them on the CPU).
+
+The CUDA kernels themselves run only on a card; chip_smoke.py holds them
+against these plain versions there. Here the wrappers receive CPU tensors,
+so they take the plain versions and launch nothing.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from spleeterrt_tpu.config import SeparatorConfig as JSeparatorConfig
+from spleeterrt_tpu.core import separate as jseparate
+from spleeterrt_tpu.core import transform as jtransform
+from spleeterrt_tpu.kernels import stft_fused as jstft_fused
+from spleeterrt_tpu_torch.config import SeparatorConfig
+from spleeterrt_tpu_torch.core import separate, transform
+from spleeterrt_tpu_torch.kernels import stft_fused
+
+torch.set_num_threads(2)
+
+CFG = SeparatorConfig(bin_limit=512, time_step=64, num_stems=4,
+                      compute_dtype=torch.float32)
+JCFG = JSeparatorConfig(bin_limit=512, time_step=64, num_stems=4,
+                        compute_dtype=jnp.float32)
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    monkeypatch.setattr(
+        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+    jstft_fused.stft4096_packed.clear_cache()
+    jstft_fused.masked_istft4096_cd.clear_cache()
+    yield
+    jstft_fused.stft4096_packed.clear_cache()
+    jstft_fused.masked_istft4096_cd.clear_cache()
+
+
+def _setup(rng, n=90000):
+    """Padded audio and the frame counts of the 4-stem graph."""
+    audio = (rng.standard_normal((2, n)) * 0.3).astype(np.float32)
+    padded = transform.pad_offline(torch.from_numpy(audio), CFG.transform)
+    ds = padded.shape[-1]
+    n_out = transform.num_output_frames(ds, CFG.transform)
+    n_comp = transform.num_computed_frames(ds, CFG.transform)
+    n_req = separate.num_tiles(n_out, CFG.time_step) * CFG.time_step
+    return padded.contiguous(), n_out, n_comp, n_req
+
+
+def _stft(padded, n_comp, n_req):
+    return stft_fused.stft4096(
+        padded, transform.analysis_window(4096), n_comp, n_req,
+        CFG.bin_limit, CFG.time_step,
+    )
+
+
+def test_stft_plain_matches_jax_kernel(rng, interpret_pallas):
+    padded, n_out, n_comp, n_req = _setup(rng)
+    spec, mag = _stft(padded, n_comp, n_req)
+    s_r, s_i = jstft_fused.stft4096_packed(
+        jnp.asarray(padded.numpy()), jtransform.analysis_window(4096),
+        n_comp, n_req,
+    )
+    ref = np.asarray(jstft_fused.packed_to_complex(s_r, s_i))[:, :n_req]
+    scale = np.abs(ref).max()
+    assert spec.shape == ref.shape
+    np.testing.assert_allclose(spec.numpy(), ref, atol=2e-6 * scale)
+    assert np.all(spec.numpy()[:, n_comp:] == 0)
+
+    # mag is the U-Net's NCHW tile batch: (n_tiles, 2ch, time_step, bins).
+    ref_mag = np.asarray(jstft_fused.packed_magnitude(s_r, s_i, CFG.bin_limit))
+    nt = n_req // CFG.time_step
+    ref_tiles = ref_mag.reshape(2, nt, CFG.time_step, CFG.bin_limit).transpose(
+        1, 0, 2, 3
+    )
+    np.testing.assert_allclose(mag.numpy(), ref_tiles, atol=2e-6 * scale)
+    frames = mag.numpy().transpose(1, 0, 2, 3).reshape(2, n_req, -1)
+    assert np.all(frames[:, n_comp:] == 0)
+
+
+def test_masked_istft_plain_matches_jax_kernel(rng, interpret_pallas):
+    padded, n_out, n_comp, n_req = _setup(rng)
+    spec, _ = _stft(padded, n_comp, n_req)
+    s_r, s_i = jstft_fused.stft4096_packed(
+        jnp.asarray(padded.numpy()), jtransform.analysis_window(4096),
+        n_comp, n_req,
+    )
+    nt = n_req // CFG.time_step
+    s = len(separate.OUT_BAND_4)
+    masks_cf = rng.uniform(0.0, 1.0, (s, 2, n_req, CFG.bin_limit)).astype(
+        np.float32
+    )
+    ref = np.asarray(
+        jstft_fused.masked_istft4096_packed(
+            s_r, s_i, jnp.asarray(masks_cf), jnp.asarray(jseparate.OUT_BAND_4),
+            JCFG.bin_limit, jtransform.synthesis_window(JCFG.transform), n_out,
+        )
+    )
+    # The same masks in the layout the torch U-Net emits:
+    # (S, n_tiles, 2ch, time_step, bins).
+    masks = torch.from_numpy(
+        masks_cf.reshape(s, 2, nt, CFG.time_step, CFG.bin_limit)
+        .transpose(0, 2, 1, 3, 4).copy()
+    )
+    got = stft_fused.masked_istft4096(
+        spec, masks, torch.tensor(separate.OUT_BAND_4),
+        transform.synthesis_window(CFG.transform), n_out,
+    ).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=1e-6 * max(1.0, np.abs(ref).max()))
+
+
+def test_mask_of_ones_roundtrip(rng):
+    """Unity gain: mask of ones and out_band 1.0 reproduce the input
+    (the reference's scale-chain contract, Executable/stftFix.c)."""
+    padded, n_out, n_comp, n_req = _setup(rng, n=70000)
+    spec, _ = _stft(padded, n_comp, n_req)
+    nt = n_req // CFG.time_step
+    ones = torch.ones((1, nt, 2, CFG.time_step, CFG.bin_limit))
+    out = stft_fused.masked_istft4096(
+        spec, ones, torch.tensor([1.0]),
+        transform.synthesis_window(CFG.transform), n_out,
+    )[0].numpy()
+    x = padded.numpy()
+    n = 4096
+    ds = x.shape[-1]
+    np.testing.assert_allclose(out[:, n : ds - n], x[:, n : ds - n], atol=5e-6)
+
+
+def test_wrappers_take_plain_path_on_cpu(rng):
+    """CPU tensors go to the plain versions: outputs equal them exactly
+    and the launch counters stay at 0."""
+    stft_fused.reset_launch_counts()
+    padded, n_out, n_comp, n_req = _setup(rng, n=20000)
+    win = transform.analysis_window(4096)
+    spec, mag = _stft(padded, n_comp, n_req)
+    pspec, pmag = stft_fused.stft4096_plain(
+        padded, win, n_comp, n_req, CFG.bin_limit, CFG.time_step
+    )
+    assert torch.equal(spec, pspec) and torch.equal(mag, pmag)
+
+    nt = n_req // CFG.time_step
+    masks = torch.rand((4, nt, 2, CFG.time_step, CFG.bin_limit),
+                       generator=torch.Generator().manual_seed(0))
+    args = (spec, masks, torch.tensor(separate.OUT_BAND_4),
+            transform.synthesis_window(CFG.transform), n_out)
+    assert torch.equal(
+        stft_fused.masked_istft4096(*args), stft_fused.masked_istft4096_plain(*args)
+    )
+    assert stft_fused.launch_counts() == {"stft4096": 0, "masked_istft4096": 0}
+
+
+def test_wrappers_reject_bad_inputs(rng):
+    padded, n_out, n_comp, n_req = _setup(rng, n=20000)
+    win = transform.analysis_window(4096)
+    with pytest.raises(ValueError, match="float32"):
+        stft_fused.stft4096(padded.double(), win, n_comp, n_req, 512, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        stft_fused.stft4096(padded.t().contiguous().t(), win, n_comp, n_req, 512, 64)
+    with pytest.raises(ValueError, match="time_step"):
+        stft_fused.stft4096(padded, win, n_comp, n_req + 1, 512, 64)
+    spec, _ = stft_fused.stft4096(padded, win, n_comp, n_req, 512, 64)
+    masks = torch.zeros((4, n_req // 64, 2, 64, 512))
+    with pytest.raises(ValueError, match="stems"):
+        stft_fused.masked_istft4096(
+            spec, masks, torch.zeros(3), transform.synthesis_window(CFG.transform),
+            n_out,
+        )
