@@ -24,6 +24,15 @@ uses ELU everywhere with inputs below -15 clamped to -1.
 
 Public functions keep the reference package's NHWC (batch, time, bins, 2)
 layout; the separation pipeline calls the NCHW forms directly.
+
+Two routes, as in the reference package (spleeterrt_tpu/core/model.py):
+the packed U-Net (`packed_unet_masks`: the hand kernels K2-K6 of
+kernels/encoder.py and kernels/tail.py around a plain-torch mid trunk)
+wherever `use_packed_unet` holds, which is the standard architecture at
+tile shapes the kernels take with the exact sigmoid; otherwise the
+canonical per-stem `unet_forward_nchw`. The gate looks at shapes only, not
+at the device: on CPU tensors the packed route runs the kernels' plain
+versions, on CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -83,16 +92,31 @@ def elu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < -15.0, -1.0, F.elu(x))
 
 
+def activation(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The U-Net's activations by the kernels' names (spleeter.c:43-56)."""
+    if name == "elu":
+        return elu(x)
+    if name == "leaky":
+        return F.leaky_relu(x, 0.2)
+    if name == "relu":
+        return torch.relu(x)
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def encoder_act_name(stem_mode: int) -> str:
+    return "leaky" if stem_mode == STEM_MODE_2 else "elu"
+
+
+def decoder_act_name(stem_mode: int) -> str:
+    return "relu" if stem_mode == STEM_MODE_2 else "elu"
+
+
 def act_encoder(x: torch.Tensor, stem_mode: int) -> torch.Tensor:
-    if stem_mode == STEM_MODE_2:
-        return F.leaky_relu(x, 0.2)  # leakyReLU (spleeter.c:43-46)
-    return elu(x)
+    return activation(x, encoder_act_name(stem_mode))
 
 
 def act_decoder(x: torch.Tensor, stem_mode: int) -> torch.Tensor:
-    if stem_mode == STEM_MODE_2:
-        return torch.relu(x)  # ReLU (spleeter.c:47-50)
-    return elu(x)
+    return activation(x, decoder_act_name(stem_mode))
 
 
 def fast_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -196,14 +220,129 @@ def num_stems(stacked_params: Params) -> int:
     return stacked_params["up7"]["w"].shape[0]
 
 
-def multi_stem_masks(
+# The weight shapes the packed route takes (the reference's
+# _use_packed_unet), in this package's layouts: OIHW convs,
+# (Cin, Cout, kh, kw) transposed convs.
+PACKED_WEIGHT_SHAPES = {
+    "down1": (16, 2, 5, 5),
+    "down2": (32, 16, 5, 5),
+    "down3": (64, 32, 5, 5),
+    "down4": (128, 64, 5, 5),
+    "up4": (128, 32, 5, 5),
+    "up5": (64, 16, 5, 5),
+    "up6": (32, 1, 5, 5),
+    "up7": (2, 1, 4, 4),
+}
+
+
+def use_packed_unet(
+    stacked_params: Params, magnitude: torch.Tensor, sigmoid: str
+) -> bool:
+    """The reference's routing to its packed U-Net, without its backend
+    check: the standard architecture, the exact sigmoid, and NCHW
+    magnitude tiles (B, 2, T, F) with T and F positive multiples of 64.
+    (The reference's conditions, encoder.supports4, T % 64, F % 64 and the
+    head's 32-row tiling of T/2 and 16-column groups of F/2, reduce to
+    that.)"""
+    if not all(k in stacked_params for k in PACKED_WEIGHT_SHAPES):
+        return False
+    _, c, t, f = magnitude.shape
+    return (
+        sigmoid == "exact"
+        and all(
+            tuple(stacked_params[k]["w"].shape[-4:]) == shape
+            for k, shape in PACKED_WEIGHT_SHAPES.items()
+        )
+        and c == 2 and t >= 64 and f >= 64 and t % 64 == 0 and f % 64 == 0
+    )
+
+
+def mid_trunk(
+    stacked_params: Params,
+    act4: torch.Tensor,  # (S * B, T/16, F/16, 128) NHWC: enc4's activation
+    skip4: torch.Tensor,  # (S * B, T/16, F/16, 128) NHWC: enc4's skip
+    stem_mode: int,
+    compute_dtype,
+) -> torch.Tensor:
+    """enc5 + enc6 + up1..up3 in plain torch convolutions, the reference's
+    `_mid_trunk_xla`, stem s's weights on images [s*B, (s+1)*B). Returns
+    up3's output (S * B, T/8, F/8, 64) NHWC, before the skip3 concat (the
+    up4 kernel takes that concat as split-K)."""
+    cast = lambda a: a.to(compute_dtype)
+    chan = lambda v: cast(v)[:, None, None]
+    n_stems = num_stems(stacked_params)
+    b = act4.shape[0] // n_stems
+    out = torch.empty(
+        (act4.shape[0], 2 * act4.shape[1], 2 * act4.shape[2], 64),
+        dtype=compute_dtype, device=act4.device,
+    )
+    for s in range(n_stems):
+        p = stem_params(stacked_params, s)
+        rows = slice(s * b, (s + 1) * b)
+        ly = p["down5"]
+        conv5 = conv_same(act4[rows].permute(0, 3, 1, 2), cast(ly["w"]),
+                          cast(ly["b"]))
+        x = act_encoder(chan(ly["bn_scale"]) * conv5 + chan(ly["bn_shift"]),
+                        stem_mode)
+        x = conv_same(x, cast(p["down6"]["w"]), cast(p["down6"]["b"]))
+        skips = {1: conv5, 2: skip4[rows].permute(0, 3, 1, 2)}
+        for i in range(1, 4):
+            ly = p[f"up{i}"]
+            y = tconv_same(x, cast(ly["w"]), cast(ly["b"]))
+            x = chan(ly["bn_scale"]) * act_decoder(y, stem_mode) + chan(
+                ly["bn_shift"])
+            if i < 3:
+                x = torch.cat([skips[i], x], dim=1)
+        out[rows] = x.permute(0, 2, 3, 1)
+    return out
+
+
+def packed_unet_masks(
+    stacked_params: Params,
+    magnitude: torch.Tensor,  # (B, 2, T, F) float32, shared across stems
+    stem_mode: int = STEM_MODE_4,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """The packed multi-stem U-Net -> (S, B, 2, T, F) float32 masks.
+
+    Dataflow of the reference's `_packed_unet_core`
+    (Executable/spleeter.c:177-301 semantics): K2 enc1 and K3 enc2-enc4
+    (skips kept in NHWC) -> plain-torch mid trunk -> K4 up4 and K5 up5
+    (split-K concats) -> K6 head, whose masks are the masked iSTFT's
+    input. Stems ride in the image axis of every kernel."""
+    from spleeterrt_tpu_torch.kernels import encoder, tail
+
+    enc_act = encoder_act_name(stem_mode)
+    dec_act = decoder_act_name(stem_mode)
+    ly = stacked_params["down1"]
+    skip, x = encoder.enc1(
+        magnitude.float().contiguous(), ly["w"], ly["b"], ly["bn_scale"],
+        ly["bn_shift"], act=enc_act, dtype=compute_dtype,
+    )
+    skips = [skip]
+    for i in (2, 3, 4):
+        ly = stacked_params[f"down{i}"]
+        skip, x = encoder.enc_s2(x, ly["w"], ly["b"], ly["bn_scale"],
+                                 ly["bn_shift"], act=enc_act)
+        skips.append(skip)
+    x = mid_trunk(stacked_params, x, skips[3], stem_mode, compute_dtype)
+    for i in (4, 5):
+        ly = stacked_params[f"up{i}"]
+        x = tail.up_shallow(skips[6 - i], x, ly["w"], ly["b"], ly["bn_scale"],
+                            ly["bn_shift"], act=dec_act)
+    ly6, ly7 = stacked_params["up6"], stacked_params["up7"]
+    return tail.head(skips[0], x, ly6["w"], ly6["b"], ly6["bn_scale"],
+                     ly6["bn_shift"], ly7["w"], ly7["b"], act=dec_act)
+
+
+def multi_stem_masks_canonical(
     stacked_params: Params,
     magnitude: torch.Tensor,  # (B, 2, T, F), shared across stems
     stem_mode: int = STEM_MODE_4,
     compute_dtype=torch.float32,
     sigmoid: str = "exact",
 ) -> torch.Tensor:
-    """S stacked nets over one NCHW magnitude batch -> (S, B, 2, T, F) fp32.
+    """S stacked canonical nets -> (S, B, 2, T, F) fp32, in plain torch.
 
     The reference runs one net per thread (VST/Source/Spleeter4Stems.c:135);
     here the nets run one after the other, each over the whole tile batch.
@@ -217,6 +356,22 @@ def multi_stem_masks(
     ])
 
 
+def multi_stem_masks(
+    stacked_params: Params,
+    magnitude: torch.Tensor,  # (B, 2, T, F), shared across stems
+    stem_mode: int = STEM_MODE_4,
+    compute_dtype=torch.float32,
+    sigmoid: str = "exact",
+) -> torch.Tensor:
+    """S stacked nets over one NCHW magnitude batch -> (S, B, 2, T, F) fp32:
+    the packed route where `use_packed_unet` holds, else the canonical."""
+    if use_packed_unet(stacked_params, magnitude, sigmoid):
+        return packed_unet_masks(stacked_params, magnitude, stem_mode,
+                                 compute_dtype)
+    return multi_stem_masks_canonical(stacked_params, magnitude, stem_mode,
+                                      compute_dtype, sigmoid)
+
+
 def multi_stem_forward(
     stacked_params: Params,
     magnitude: torch.Tensor,  # (B, T, F, 2), shared across stems
@@ -226,6 +381,6 @@ def multi_stem_forward(
 ) -> torch.Tensor:
     """Run S stacked U-Nets over one magnitude batch -> (S, B, T, F, 2)."""
     return multi_stem_masks(
-        stacked_params, magnitude.permute(0, 3, 1, 2), stem_mode,
+        stacked_params, magnitude.permute(0, 3, 1, 2).contiguous(), stem_mode,
         compute_dtype, sigmoid,
     ).permute(0, 1, 3, 4, 2)

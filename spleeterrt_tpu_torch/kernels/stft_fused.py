@@ -11,9 +11,8 @@ emits, (S, n_tiles, rows, time_step, bin_limit).
 
 Each wrapper checks device, dtype, shape and contiguity. A tensor on the
 CPU goes to the plain version (`*_plain`, torch.fft) beside it; a CUDA
-tensor launches the kernel or raises. Each wrapper's `launches` attribute
-is a plain integer that counts its kernel launches (never plain calls), so
-a run can show that it went through the kernels.
+tensor launches the kernel or raises. Launches are counted in the
+package's registry (`spleeterrt_tpu_torch.kernels.launch_counts`).
 """
 
 from __future__ import annotations
@@ -26,7 +25,13 @@ import torch
 
 from spleeterrt_tpu_torch.config import TransformConfig
 from spleeterrt_tpu_torch.core.transform import overlap_add
-from spleeterrt_tpu_torch.kernels import _build
+from spleeterrt_tpu_torch.kernels import (
+    _build,
+    check_tensor as _check,
+    count_launch,
+    launch as _launch,
+    stream_of,
+)
 
 N = 4096
 HOP = 1024  # the reference's only hop (Executable/stftFix.h:14-18)
@@ -51,23 +56,6 @@ def _twiddles(device: torch.device) -> torch.Tensor:
     """tw[j] = exp(-2 pi i j / 4096), j < 2048: float64 math, one rounding."""
     tw = np.exp(-2j * np.pi * np.arange(N // 2) / N).astype(np.complex64)
     return torch.from_numpy(tw).to(device)
-
-
-def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
-    if t.dtype != dtype or t.ndim != ndim:
-        raise ValueError(
-            f"{name}: expected a {ndim}-D {dtype} tensor, got {t.ndim}-D {t.dtype}"
-        )
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(fn, *args) -> None:
-    err = fn(*args)
-    if err:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError_t {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -134,14 +122,10 @@ def stft4096(
             _lib().spleeterrt_stft4096,
             audio.data_ptr(), rows, data_size, window.data_ptr(),
             _twiddles(dev).data_ptr(), n_comp, n_req, bin_limit, time_step,
-            spec.data_ptr(), mag.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            spec.data_ptr(), mag.data_ptr(), stream_of(dev),
         )
-    stft4096.launches += 1
+    count_launch("stft4096")
     return spec, mag
-
-
-stft4096.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -202,21 +186,7 @@ def masked_istft4096(
             _lib().spleeterrt_masked_istft4096,
             spec.data_ptr(), masks.data_ptr(), out_band.data_ptr(),
             window.data_ptr(), _twiddles(dev).data_ptr(), s, rows, n_frames,
-            n_spec, nt, t, f, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            n_spec, nt, t, f, out.data_ptr(), stream_of(dev),
         )
-    masked_istft4096.launches += 1
+    count_launch("masked_istft4096")
     return out
-
-
-masked_istft4096.launches = 0
-WRAPPERS = (stft4096, masked_istft4096)
-
-
-def reset_launch_counts() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}

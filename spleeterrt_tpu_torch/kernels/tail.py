@@ -1,0 +1,221 @@
+"""Packed U-Net decoder tail, up4 + up5 + head: wrappers, plain versions.
+
+CUDA kernels (csrc/tail.cu, csrc/head.cu) replace the reference package's
+Pallas kernels spleeterrt_tpu/kernels/tail.py::_up_kernel_pair (K4, up4),
+::_up_kernel_quad (K5, up5) and ::_head_kernel (K6, up6 + up7 + sigmoid):
+
+    up_shallow:  out  = bn_scale * act(tconv5x5_s2([skip, prev], w) + b)
+                        + bn_shift          (activation BEFORE batch norm)
+    head:        y6   = the same layer over [skip1, up5out], 32 -> 1,
+                        zero outside the image, rounded to the dtype;
+                 mask = sigmoid(conv4x4_dil2(y6, w7) + b7) in float32.
+
+The concat [skip, prev] is never materialised (split-K in the kernel:
+weight rows [:C] take the skip). Sources are NHWC (S * B, H, W, C) in the
+compute dtype; image s * B + b uses stem s's weights. The head writes the
+masks (S, B, 2, T, F) float32, the masked iSTFT's input layout.
+
+On a CPU tensor each wrapper returns its plain version (`*_plain`, torch
+convolutions in float32 on the same rounded operands); on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from spleeterrt_tpu_torch.core import model
+from spleeterrt_tpu_torch.kernels import (
+    DTYPES,
+    _build,
+    check_act,
+    check_layer,
+    check_tensor,
+    count_launch,
+    epilogue_table,
+    launch,
+    stream_of,
+)
+
+ACTS = ("elu", "relu")  # 4-stem family / 2-stem subnet (spleeter.c:43-56)
+UP_WIDTHS = {64: "up4", 32: "up5"}  # channels per source -> kernel name
+HEAD_WIDTH = 16  # channels per head source (skip1, up5out)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.spleeterrt_up_tconv.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p]
+    lib.spleeterrt_up_tconv.restype = i
+    lib.spleeterrt_head.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p]
+    lib.spleeterrt_head.restype = i
+    return lib
+
+
+def _check_sources(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
+    check_tensor(a, names[0], DTYPES, 4, a.device)
+    check_tensor(b, names[1], a.dtype, 4, a.device)
+    if a.shape != b.shape:
+        raise ValueError(f"{names}: shapes differ, {tuple(a.shape)} and {tuple(b.shape)}")
+
+
+def _decoder_plain(skip, prev, w, b, bn_scale, bn_shift, act):
+    """Per stem: bn_scale * act(tconv([skip, prev]) + b) + bn_shift in
+    float32 from operands rounded to the sources' dtype -> (S, B, C, 2H,
+    2W) as a list over stems."""
+    dtype = skip.dtype
+    x = torch.cat([skip, prev], -1).float().permute(0, 3, 1, 2)
+    return [
+        bn_scale[s][:, None, None] * model.activation(
+            model.tconv_same(xs, w[s].to(dtype).float()) + b[s][:, None, None],
+            act,
+        ) + bn_shift[s][:, None, None]
+        for s, xs in enumerate(x.chunk(w.shape[0]))
+    ]
+
+
+def up_shallow_plain(skip, prev, w, b, bn_scale, bn_shift, *, act):
+    """Plain version of :func:`up_shallow`."""
+    ys = _decoder_plain(skip, prev, w, b, bn_scale, bn_shift, act)
+    return torch.cat(ys).permute(0, 2, 3, 1).to(skip.dtype).contiguous()
+
+
+def up_shallow(
+    skip: torch.Tensor,  # (S * B, H, W, C) NHWC, C = 64 (up4) or 32 (up5)
+    prev: torch.Tensor,  # the same shape and dtype: the layer below's output
+    w: torch.Tensor,  # (S, 2C, C/2, 5, 5) float32, rows [:C] for the skip
+    b: torch.Tensor,  # (S, C/2) float32; bn_scale, bn_shift the same
+    bn_scale: torch.Tensor,
+    bn_shift: torch.Tensor,
+    *,
+    act: str,
+) -> torch.Tensor:
+    """up4 or up5 -> (S * B, 2H, 2W, C/2) in the sources' dtype."""
+    _check_sources(skip, prev, ("skip", "prev"))
+    dev = skip.device
+    sb, h, wd, c = skip.shape
+    if c not in UP_WIDTHS:
+        raise ValueError(f"skip must have {tuple(UP_WIDTHS)} channels, got {c}")
+    vecs = {"b": b, "bn_scale": bn_scale, "bn_shift": bn_shift}
+    s = check_layer(dev, w, (2 * c, c // 2, 5, 5), vecs, c // 2)
+    if sb % s:
+        raise ValueError(f"skip holds {sb} images, not a multiple of {s} stems")
+    code = check_act(act, ACTS)
+    if dev.type == "cpu":
+        return up_shallow_plain(skip, prev, w, b, bn_scale, bn_shift, act=act)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    out = torch.empty((sb, 2 * h, 2 * wd, c // 2), dtype=skip.dtype, device=dev)
+    # Named, so their memory is not handed to the next allocation before
+    # the kernel has read it. (S, Cin, Cout, 5, 5) -> (S, Cin, 5, 5, Cout).
+    wk = w.to(skip.dtype).permute(0, 1, 3, 4, 2).contiguous()
+    epi = epilogue_table(b, bn_scale, bn_shift)
+    with torch.cuda.device(dev):
+        launch(
+            _lib().spleeterrt_up_tconv, c, int(skip.dtype == torch.bfloat16),
+            skip.data_ptr(), prev.data_ptr(), wk.data_ptr(), epi.data_ptr(),
+            sb, sb // s, h, wd, code, out.data_ptr(), stream_of(dev),
+        )
+    count_launch(UP_WIDTHS[c])
+    return out
+
+
+def up6_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, *, act):
+    """The head's first half, y6 before its rounding to the sources' dtype:
+    (S, B, 1, 2H, 2W) float32."""
+    return torch.stack(_decoder_plain(skip1, up5, w6, b6, bn_scale6,
+                                      bn_shift6, act))
+
+
+def head_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, w7, b7, *, act):
+    """Plain version of :func:`head`."""
+    ys = up6_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, act=act)
+    dtype = skip1.dtype
+    return torch.stack([
+        torch.sigmoid(
+            model.conv_dilated_final(y.to(dtype).float(), w7[s].to(dtype).float())
+            + b7[s][:, None, None]
+        )
+        for s, y in enumerate(ys)
+    ]).contiguous()
+
+
+def head_error_bound(skip1, up5, w6, b6, bn_scale6, bn_shift6, w7, b7, *,
+                     act) -> torch.Tensor:
+    """Per-pixel bound on |head - head_plain|, (S, B, 2, 2H, 2W) float32.
+
+    The kernel and the plain version sum y6 in another order, so each y6
+    may differ by e: 2 ulps of that y6 in bf16 (a rounding flip), 1e-5 of
+    max|y6| in float32. A mask reads 16 of them through its channel's up7
+    taps, so its logit may differ by L = sum e * |w7| (zero for taps outside
+    the image, where y6 is zero on both sides), plus 1e-6 of the logit's
+    own terms; the sigmoid turns that into L times its largest slope within
+    L of the logit, and 1e-6 covers its float32 rounding."""
+    ys = up6_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, act=act)
+    dtype = skip1.dtype
+    bounds = []
+    for s, y in enumerate(ys):
+        y = y.to(dtype).float()
+        if dtype == torch.bfloat16:
+            e = 2 * torch.exp2(torch.floor(torch.log2(y.abs().clamp_min(2.0 ** -126))) - 7)
+        else:
+            e = torch.full_like(y, 1e-5 * ys.abs().max().item())
+        w = w7[s].to(dtype).float()
+        b = b7[s][:, None, None]
+        logit = model.conv_dilated_final(y, w) + b
+        terms = model.conv_dilated_final(y.abs(), w.abs()) + b.abs()
+        err = model.conv_dilated_final(e, w.abs()) + 1e-6 * terms
+        z = (logit.abs() - err).clamp_min(0)
+        bounds.append(err * torch.sigmoid(z) * torch.sigmoid(-z) + 1e-6)
+    return torch.stack(bounds)
+
+
+def head(
+    skip1: torch.Tensor,  # (S * B, H, W, 16) NHWC: enc1's skip
+    up5: torch.Tensor,  # (S * B, H, W, 16): up5's output, same dtype
+    w6: torch.Tensor,  # (S, 32, 1, 5, 5) float32, rows [:16] for skip1
+    b6: torch.Tensor,  # (S, 1) float32; bn_scale6, bn_shift6 the same
+    bn_scale6: torch.Tensor,
+    bn_shift6: torch.Tensor,
+    w7: torch.Tensor,  # (S, 2, 1, 4, 4) float32
+    b7: torch.Tensor,  # (S, 2) float32
+    *,
+    act: str,
+) -> torch.Tensor:
+    """up6 + up7 + sigmoid -> masks (S, B, 2, 2H, 2W) float32."""
+    _check_sources(skip1, up5, ("skip1", "up5"))
+    dev = skip1.device
+    sb, h, wd, c = skip1.shape
+    if c != HEAD_WIDTH:
+        raise ValueError(f"skip1 must have {HEAD_WIDTH} channels, got {c}")
+    vecs = {"b6": b6, "bn_scale6": bn_scale6, "bn_shift6": bn_shift6}
+    s = check_layer(dev, w6, (32, 1, 5, 5), vecs, 1, name="w6")
+    if check_layer(dev, w7, (2, 1, 4, 4), {"b7": b7}, 2, name="w7") != s:
+        raise ValueError("w6 and w7 disagree on the number of stems")
+    if sb % s:
+        raise ValueError(f"skip1 holds {sb} images, not a multiple of {s} stems")
+    code = check_act(act, ACTS)
+    if dev.type == "cpu":
+        return head_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, w7, b7,
+                          act=act)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    masks = torch.empty((s, sb // s, 2, 2 * h, 2 * wd), dtype=torch.float32,
+                        device=dev)
+    dtype = skip1.dtype
+    w6k = w6.to(dtype).reshape(s, 32, 25).contiguous()
+    w7k = w7.to(dtype).reshape(s, 2, 16).contiguous()
+    scal = torch.cat([b6, bn_scale6, bn_shift6, b7], 1).contiguous()  # (S, 5)
+    with torch.cuda.device(dev):
+        launch(
+            _lib().spleeterrt_head, int(dtype == torch.bfloat16),
+            skip1.data_ptr(), up5.data_ptr(), w6k.data_ptr(), w7k.data_ptr(),
+            scal.data_ptr(), sb, sb // s, h, wd, code, masks.data_ptr(),
+            stream_of(dev),
+        )
+    count_launch("head")
+    return masks

@@ -1,24 +1,33 @@
 """The CUDA kernels against their plain versions, on a card.
 
 chip_smoke.py checks the kernels at the main path's shapes; these tests
-add edge shapes: lengths that end mid-frame, one and three rows, the
-narrowest and widest bin limits, spans that end mid-block. Where there is
-no CUDA device every test skips. On a machine with one (which may lack
-jax, which tests/conftest.py imports):
+add edge shapes: for K1/K7 lengths that end mid-frame, one and three rows,
+the narrowest and widest bin limits, spans that end mid-block; for K2-K6
+the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
+one tile and an odd tile count, one stem and four, both compute dtypes.
+Where there is no CUDA device every test skips. On a machine with one
+(which may lack jax, which tests/conftest.py imports):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Bounds: both sides are fp32 FFTs that round in another order; an
-indexing fault gives errors of order max|X|, rounding about 1e-7 of it.
+Bounds: K1/K7 are fp32 FFTs that round in another order; an indexing
+fault gives errors of order max|X|, rounding about 1e-7 of it. K2-K5 sum
+in fp32 like their plain versions (TF32 off): 1e-5 of max|plain| in fp32;
+in bf16 the outputs round once, so a sum that lands on the other side of
+a rounding boundary differs by one ulp: 2 bf16 ulps of max|plain|. K6's
+masks are held pixel by pixel to tail.head_error_bound.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from spleeterrt_tpu_torch import kernels
 from spleeterrt_tpu_torch.config import TransformConfig
-from spleeterrt_tpu_torch.core import transform
-from spleeterrt_tpu_torch.kernels import stft_fused
+from spleeterrt_tpu_torch.core import model, transform
+from spleeterrt_tpu_torch.kernels import encoder, stft_fused, tail
 
 pytestmark = pytest.mark.cuda
 
@@ -29,6 +38,8 @@ TCFG = TransformConfig()
 def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False  # the plain versions' convs
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -56,9 +67,9 @@ def test_stft_kernel_matches_plain(device, rows, n, bin_limit, time_step):
     audio, _, n_comp, n_req = _inputs(device, rows, n, time_step)
     args = (audio, transform.analysis_window(4096, device=device), n_comp,
             n_req, bin_limit, time_step)
-    before = stft_fused.stft4096.launches
+    before = kernels.launch_counts()["stft4096"]
     spec, mag = stft_fused.stft4096(*args)
-    assert stft_fused.stft4096.launches == before + 1
+    assert kernels.launch_counts()["stft4096"] == before + 1
     pspec, pmag = stft_fused.stft4096_plain(*args)
     bound = 1e-5 * pspec.abs().max().item()
     assert (spec - pspec).abs().max().item() <= bound
@@ -83,9 +94,9 @@ def test_masked_istft_kernel_matches_plain(
     out_band = torch.rand((n_stems,), generator=gen, device=device)
     args = (spec, masks, out_band,
             transform.synthesis_window(TCFG, device=device), n_out)
-    before = stft_fused.masked_istft4096.launches
+    before = kernels.launch_counts()["masked_istft4096"]
     y = stft_fused.masked_istft4096(*args)
-    assert stft_fused.masked_istft4096.launches == before + 1
+    assert kernels.launch_counts()["masked_istft4096"] == before + 1
     py = stft_fused.masked_istft4096_plain(*args)
     assert y.shape == py.shape == (n_stems, rows, n_out * 1024 + 3072)
     assert (y - py).abs().max().item() <= 1e-5 * max(1.0, py.abs().max().item())
@@ -107,3 +118,148 @@ def test_kernel_wrappers_refuse_mixed_devices(device):
             spec, masks, torch.ones(1, device=device),
             transform.synthesis_window(TCFG, device=device), n_out,
         )
+
+
+# ---------------------------------------------------------------------------
+# K2-K6: the packed U-Net kernels
+# ---------------------------------------------------------------------------
+
+
+def _bound(ref: torch.Tensor, dtype) -> float:
+    m = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return 1e-5 * m
+    return 2 * 2.0 ** (math.floor(math.log2(m)) - 7)  # 2 bf16 ulps of m
+
+
+def _layer(gen, n_stems, w_shape, width, device):
+    """Stacked random (w, b, bn_scale, bn_shift) with random biases and
+    batch norms; w scaled by its fan-in."""
+    fan_in = math.prod(w_shape[1:]) if len(w_shape) == 4 else 1
+    w = torch.randn((n_stems, *w_shape), generator=gen) * math.sqrt(2.0 / fan_in)
+    b = 0.1 * torch.randn((n_stems, width), generator=gen)
+    scale = 1 + 0.3 * torch.randn((n_stems, width), generator=gen)
+    shift = 0.2 * torch.randn((n_stems, width), generator=gen)
+    return tuple(t.to(device) for t in (w, b, scale, shift))
+
+
+def _assert_close(got, ref, dtype, what):
+    assert got.shape == ref.shape and got.dtype == ref.dtype, what
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _bound(ref, dtype), f"{what}: max error {err}"
+
+
+def _counted(name, fn, *args, **kw):
+    before = kernels.launch_counts()[name]
+    out = fn(*args, **kw)
+    assert kernels.launch_counts()[name] == before + 1
+    return out
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+ENC_SHAPES = [  # stems, tiles, T, F
+    (1, 1, 32, 64), (4, 3, 64, 64), (1, 3, 64, 128), (4, 1, 32, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_stems,n_tiles,t,f", ENC_SHAPES)
+def test_encoder_kernels_match_plain(device, dtype, n_stems, n_tiles, t, f):
+    gen = torch.Generator().manual_seed(n_stems * 100 + n_tiles * 10 + t)
+    mag = (torch.rand((n_tiles, 2, t, f), generator=gen) * 5).to(device)
+    act = "elu" if n_stems == 4 else "leaky"
+    ly = _layer(gen, n_stems, (16, 2, 5, 5), 16, device)
+    skip, x = _counted("enc1", encoder.enc1, mag, *ly, act=act, dtype=dtype)
+    pskip, px = encoder.enc1_plain(mag, *ly, act=act, dtype=dtype)
+    _assert_close(skip, pskip, dtype, "enc1 skip")
+    _assert_close(x, px, dtype, "enc1 act")
+    for c in (16, 32, 64):
+        ly = _layer(gen, n_stems, (2 * c, c, 5, 5), 2 * c, device)
+        skip, y = _counted("enc_s2", encoder.enc_s2, px, *ly, act=act)
+        pskip, py = encoder.enc_s2_plain(px, *ly, act=act)
+        _assert_close(skip, pskip, dtype, f"enc_s2({c}) skip")
+        _assert_close(y, py, dtype, f"enc_s2({c}) act")
+        px = py
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_stems,n_tiles", [(1, 1), (4, 3)])
+@pytest.mark.parametrize("c", [64, 32])
+def test_up_shallow_kernel_matches_plain(device, dtype, n_stems, n_tiles, c):
+    """up4 at (T/8, F/8) and up5 at (T/4, F/4) of a T = F = 64 tile."""
+    gen = torch.Generator().manual_seed(c + n_stems)
+    side = 8 if c == 64 else 16
+    shape = (n_stems * n_tiles, side, side, c)
+    skip = torch.randn(shape, generator=gen).to(device, dtype)
+    prev = torch.randn(shape, generator=gen).to(device, dtype)
+    act = "elu" if n_stems == 4 else "relu"
+    ly = _layer(gen, n_stems, (2 * c, c // 2, 5, 5), c // 2, device)
+    got = _counted(tail.UP_WIDTHS[c], tail.up_shallow, skip, prev, *ly, act=act)
+    _assert_close(got, tail.up_shallow_plain(skip, prev, *ly, act=act), dtype,
+                  tail.UP_WIDTHS[c])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_stems,n_tiles,t,f", [(1, 1, 64, 64), (4, 3, 64, 128)])
+def test_head_kernel_matches_plain(device, dtype, n_stems, n_tiles, t, f):
+    gen = torch.Generator().manual_seed(t + f + n_stems)
+    shape = (n_stems * n_tiles, t // 2, f // 2, 16)
+    skip1 = torch.randn(shape, generator=gen).to(device, dtype)
+    up5 = torch.randn(shape, generator=gen).to(device, dtype)
+    act = "elu" if n_stems == 4 else "relu"
+    w6, b6, s6, h6 = _layer(gen, n_stems, (32, 1, 5, 5), 1, device)
+    w7, b7, _, _ = _layer(gen, n_stems, (2, 1, 4, 4), 2, device)
+    args = (skip1, up5, w6, b6, s6, h6, w7, b7)
+    got = _counted("head", tail.head, *args, act=act)
+    ref = tail.head_plain(*args, act=act)
+    assert got.shape == (n_stems, n_tiles, 2, t, f)
+    assert got.dtype == ref.dtype
+    err = (got - ref).abs()
+    bound = tail.head_error_bound(*args, act=act)
+    assert torch.all(err <= bound), f"head: max error / bound {(err / bound).max()}"
+
+
+def test_packed_unet_runs_every_kernel_once(device):
+    """multi_stem_masks on the card at the gate's smallest tile: K2 once,
+    K3 three times, K4, K5 and K6 once, and the masks match the plain
+    composition on the CPU."""
+    gen = torch.Generator().manual_seed(5)
+    stacked = {k: {f: v[None].to(device) for f, v in ly.items()}
+               for k, ly in model.init_params(gen).items()}
+    mag = torch.rand((3, 2, 64, 64), generator=gen).to(device) * 4
+    kernels.reset_launch_counts()
+    got = model.multi_stem_masks(stacked, mag)
+    counts = kernels.launch_counts()
+    assert counts == {"stft4096": 0, "enc1": 1, "enc_s2": 3, "up4": 1,
+                      "up5": 1, "head": 1, "masked_istft4096": 0}
+    cpu = {k: {f: v.cpu() for f, v in ly.items()} for k, ly in stacked.items()}
+    ref = model.multi_stem_masks(cpu, mag.cpu())
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
+def test_unet_wrappers_refuse_mixed_and_bad_inputs(device):
+    kernels.reset_launch_counts()
+    gen = torch.Generator().manual_seed(0)
+    mag = torch.rand((1, 2, 64, 64), generator=gen).to(device)
+    ly_cpu = _layer(gen, 1, (16, 2, 5, 5), 16, "cpu")
+    ly = tuple(t.to(device) for t in ly_cpu)
+    with pytest.raises(ValueError, match="is on cpu"):
+        encoder.enc1(mag, *ly_cpu, act="elu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        encoder.enc1(mag, *ly, act="elu", dtype=torch.float16)
+    x = torch.rand((1, 32, 32, 16), generator=gen).to(device)
+    ly2 = _layer(gen, 1, (32, 16, 5, 5), 32, device)
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder.enc_s2(x.transpose(1, 2), *ly2, act="elu")
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        encoder.enc_s2(x.half(), *ly2, act="elu")
+    src = torch.rand((1, 8, 8, 64), generator=gen).to(device)
+    ly4 = _layer(gen, 1, (128, 32, 5, 5), 32, device)
+    with pytest.raises(ValueError, match="prev is on cpu"):
+        tail.up_shallow(src, src.cpu(), *ly4, act="elu")
+    h = torch.rand((1, 32, 32, 16), generator=gen).to(device)
+    w6 = _layer(gen, 1, (32, 1, 5, 5), 1, device)
+    w7, b7, _, _ = _layer(gen, 1, (2, 1, 4, 4), 2, device)
+    with pytest.raises(ValueError, match="w7 is on cpu"):
+        tail.head(h, h, *w6, w7.cpu(), b7, act="elu")
+    assert not any(kernels.launch_counts().values())

@@ -1,0 +1,140 @@
+"""spleeterrt_tpu_torch.kernels.encoder (K2 enc1, K3 enc2-enc4) against the
+JAX package's packed encoder, on the CPU.
+
+The JAX side runs spleeterrt_tpu.kernels.encoder.encoder_packed (its Pallas
+kernels _enc1_kernel and _s2_kernel in interpret mode) and unpacks each
+output with quad_unpack; the port's wrappers take their plain versions for
+CPU tensors. Both run in float32 on the same numpy inputs and weights,
+with random biases and batch norms; skips and activations agree to
+atol 1e-4 / rtol 2e-4, the bound the JAX package holds its own kernels to
+(tests/test_encoder.py). The port's ELU uses expm1 and the TPU kernels
+exp(x) - 1, about 1e-7 apart.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from spleeterrt_tpu.kernels import encoder as jencoder
+from spleeterrt_tpu_torch import kernels
+from spleeterrt_tpu_torch.core import weights
+from spleeterrt_tpu_torch.kernels import encoder
+
+torch.set_num_threads(2)
+
+LAYERS = ((2, 16), (16, 32), (32, 64), (64, 128))
+
+
+@pytest.fixture(autouse=True)
+def interpret_pallas(monkeypatch):
+    monkeypatch.setattr(
+        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+
+
+def _rand_layer(rng, cin, cout):
+    """One encoder layer in the JAX package's layout (HWIO kernel)."""
+    return {
+        "w": (rng.standard_normal((5, 5, cin, cout)) / np.sqrt(12.5 * cin)
+              ).astype(np.float32),
+        "b": (0.1 * rng.standard_normal(cout)).astype(np.float32),
+        "bn_scale": (1 + 0.3 * rng.standard_normal(cout)).astype(np.float32),
+        "bn_shift": (0.2 * rng.standard_normal(cout)).astype(np.float32),
+    }
+
+
+def _stacked_encoders(rng, n_stems):
+    """({down1..down4} stacked over stems) in the JAX and the port layouts."""
+    nets = [
+        {f"down{i}": _rand_layer(rng, cin, cout)
+         for i, (cin, cout) in enumerate(LAYERS, start=1)}
+        for _ in range(n_stems)
+    ]
+    jstacked = jax.tree.map(lambda *xs: jnp.stack(xs), *nets)
+    stacked = weights.stack_params([weights.params_from_jax(n) for n in nets])
+    return jstacked, stacked
+
+
+def _port_encoder(stacked, mag_nhwc, act, dtype=torch.float32):
+    """enc1 + enc_s2 x 3 on the port -> (skips, act4), NHWC."""
+    mag = torch.from_numpy(np.ascontiguousarray(mag_nhwc.transpose(0, 3, 1, 2)))
+    ly = stacked["down1"]
+    skip, x = encoder.enc1(mag, ly["w"], ly["b"], ly["bn_scale"],
+                           ly["bn_shift"], act=act, dtype=dtype)
+    skips = [skip]
+    for i in (2, 3, 4):
+        ly = stacked[f"down{i}"]
+        skip, x = encoder.enc_s2(x, ly["w"], ly["b"], ly["bn_scale"],
+                                 ly["bn_shift"], act=act)
+        skips.append(skip)
+    return skips, x
+
+
+@pytest.mark.parametrize("act", ["elu", "leaky"])
+def test_encoder_matches_jax_packed(rng, act):
+    """Two stems over one stem-shared (B=2, 32, 64, 2) magnitude: every
+    skip and enc4's activation, image s*B + b from stem s."""
+    jstacked, stacked = _stacked_encoders(rng, 2)
+    mag = (np.abs(rng.standard_normal((2, 32, 64, 2))) * 2.0).astype(np.float32)
+    jskips, jact4 = jencoder.encoder_packed(
+        jstacked, jnp.asarray(mag), n_layers=4, act=act,
+        compute_dtype=jnp.float32,
+    )
+    kernels.reset_launch_counts()
+    skips, act4 = _port_encoder(stacked, mag, act)
+    assert not any(kernels.launch_counts().values())  # CPU: plain versions
+    for i, (got, ref) in enumerate(zip(skips + [act4], list(jskips) + [jact4])):
+        cout = LAYERS[min(i, 3)][1]
+        ref = np.asarray(jencoder.quad_unpack(ref, cout))
+        assert got.shape == ref.shape == (4, 32 >> (min(i, 3) + 1),
+                                          64 >> (min(i, 3) + 1), cout)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=2e-4)
+
+
+def test_enc1_bf16_plain_rounds_operands_and_outputs(rng):
+    """The bf16 plain version sums bf16-rounded operands in float32 and
+    stores bf16: equal to the float32 plain version on rounded inputs,
+    rounded once."""
+    _, stacked = _stacked_encoders(rng, 1)
+    ly = dict(stacked["down1"])
+    mag = torch.from_numpy(np.abs(rng.standard_normal((2, 2, 32, 64))).astype(np.float32))
+    skip, actv = encoder.enc1(mag, ly["w"], ly["b"], ly["bn_scale"],
+                              ly["bn_shift"], act="elu", dtype=torch.bfloat16)
+    rounded = lambda t: t.to(torch.bfloat16).float()
+    rskip, ractv = encoder.enc1(
+        rounded(mag), rounded(ly["w"]), ly["b"], ly["bn_scale"], ly["bn_shift"],
+        act="elu", dtype=torch.float32,
+    )
+    assert skip.dtype == actv.dtype == torch.bfloat16
+    assert torch.equal(skip, rskip.to(torch.bfloat16))
+    assert torch.equal(actv, ractv.to(torch.bfloat16))
+
+
+def test_encoder_wrappers_reject_bad_inputs(rng):
+    _, stacked = _stacked_encoders(rng, 2)
+    d1, d2 = stacked["down1"], stacked["down2"]
+    args1 = (d1["w"], d1["b"], d1["bn_scale"], d1["bn_shift"])
+    mag = torch.rand(2, 2, 32, 64)
+    with pytest.raises(ValueError, match="float32"):
+        encoder.enc1(mag.double(), *args1, act="elu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        encoder.enc1(mag.transpose(2, 3), *args1, act="elu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="act"):
+        encoder.enc1(mag, *args1, act="relu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        encoder.enc1(mag, *args1, act="elu", dtype=torch.float16)
+    with pytest.raises(ValueError, match="w"):
+        encoder.enc1(mag, *(a[:, :8] for a in args1), act="elu",
+                     dtype=torch.float32)
+    args2 = (d2["w"], d2["b"], d2["bn_scale"], d2["bn_shift"])
+    with pytest.raises(ValueError, match="C in"):
+        encoder.enc_s2(torch.rand(4, 16, 32, 8), *args2, act="elu")
+    with pytest.raises(ValueError, match="multiple of 2 stems"):
+        encoder.enc_s2(torch.rand(3, 16, 32, 16), *args2, act="elu")
+    with pytest.raises(ValueError, match=r"expected \(S, \*\(64, 32, 5, 5\)\)"):
+        encoder.enc_s2(torch.rand(4, 16, 32, 32), *args2, act="elu")

@@ -1,0 +1,326 @@
+"""spleeterrt_tpu_torch.kernels.tail (K4 up4, K5 up5, K6 head) and the packed
+U-Net route of core/model.py against the JAX package, on the CPU.
+
+The JAX side runs its packed kernels (spleeterrt_tpu/kernels/tail.py, and
+for the whole U-Net also kernels/encoder.py) in interpret mode, with
+FORCE_PACKED_UNET = True where it goes through core/model.py; the port's
+wrappers take their plain versions for CPU tensors, so the CPU runs the
+same composition the card runs with the kernels. Tolerances are the JAX
+package's own for these kernels (tests/test_tail.py): up4/up5 and the
+U-Net atol 1e-4 / rtol 2e-4, the head atol 2e-5 / rtol 1e-4, the
+separation atol 5e-4.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from jax.experimental import pallas as pl
+
+from spleeterrt_tpu.config import SeparatorConfig as JSeparatorConfig
+from spleeterrt_tpu.core import model as jmodel
+from spleeterrt_tpu.core import separate as jseparate
+from spleeterrt_tpu.core import transform as jtransform
+from spleeterrt_tpu.core import weights as jweights
+from spleeterrt_tpu.kernels import stft_fused as jstft_fused
+from spleeterrt_tpu.kernels import tail as jtail
+from spleeterrt_tpu.kernels.encoder import quad_unpack
+from spleeterrt_tpu_torch import kernels
+from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig
+from spleeterrt_tpu_torch.core import model, separate, weights
+from spleeterrt_tpu_torch.kernels import tail
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def interpret_pallas(monkeypatch):
+    monkeypatch.setattr(
+        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+
+
+def _rand_layer(rng, cin, cout):
+    """One 5x5 decoder layer in the JAX package's layout (HWIO kernel),
+    random bias and batch norm."""
+    return {
+        "w": (rng.standard_normal((5, 5, cin, cout)) * 0.2).astype(np.float32),
+        "b": (0.1 * rng.standard_normal(cout)).astype(np.float32),
+        "bn_scale": (1 + 0.3 * rng.standard_normal(cout)).astype(np.float32),
+        "bn_shift": (0.2 * rng.standard_normal(cout)).astype(np.float32),
+    }
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _tconv_w(w_hwio):
+    """HWIO -> (Cin, Cout, kh, kw), as params_from_jax converts up1..up6."""
+    return _t(np.asarray(w_hwio).transpose(2, 3, 0, 1))
+
+
+def _stack(layers):
+    """Port-layout stacked (w, b, bn_scale, bn_shift) of per-stem decoder
+    layers."""
+    return (
+        torch.stack([_tconv_w(ly["w"]) for ly in layers]),
+        *(torch.stack([_t(ly[k]) for ly in layers])
+          for k in ("b", "bn_scale", "bn_shift")),
+    )
+
+
+def _jax_up(layers, skip, prev, t_in, act):
+    cs = skip.shape[-1]
+
+    def packed(rows):
+        return tuple(jnp.stack(ws) for ws in zip(*[
+            jtail._pack_w_up(jnp.asarray(ly["w"])[:, :, rows, :], cs, jnp.float32)
+            for ly in layers
+        ]))
+
+    epi = jnp.stack([
+        jtail._up_epilogue(*(jnp.asarray(ly[k]) for k in ("b", "bn_scale", "bn_shift")))
+        for ly in layers
+    ])
+    out = jtail.up_shallow(
+        jtail.pad_pk(jtail.quad_pack_nhwc(jnp.asarray(skip), cs)),
+        jtail.pad_pk(jtail.quad_pack_nhwc(jnp.asarray(prev), cs)),
+        packed(slice(0, cs)), packed(slice(cs, 2 * cs)), epi,
+        t_in=t_in, act=act, out_dtype=jnp.float32,
+    )
+    return np.asarray(quad_unpack(out, cs // 2))
+
+
+@pytest.mark.parametrize("cin_src,t_in,f_in", [(64, 8, 8), (32, 16, 16)])
+def test_up_shallow_matches_jax(rng, cin_src, t_in, f_in):
+    """up4 (64 + 64 -> 32) and up5 (32 + 32 -> 16), one stem."""
+    ly = _rand_layer(rng, 2 * cin_src, cin_src // 2)
+    skip = rng.standard_normal((2, t_in, f_in, cin_src)).astype(np.float32)
+    prev = rng.standard_normal((2, t_in, f_in, cin_src)).astype(np.float32)
+    ref = _jax_up([ly], skip, prev, t_in, "elu")
+    got = tail.up_shallow(_t(skip), _t(prev), *_stack([ly]), act="elu")
+    assert got.shape == ref.shape == (2, 2 * t_in, 2 * f_in, cin_src // 2)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=2e-4)
+
+
+def test_up_shallow_per_stem_weights(rng):
+    """Images [s*B, (s+1)*B) take stem s's weights."""
+    cin_src, t_in, f_in = 32, 8, 16
+    lys = [_rand_layer(rng, 2 * cin_src, cin_src // 2) for _ in range(2)]
+    skip = rng.standard_normal((4, t_in, f_in, cin_src)).astype(np.float32)
+    prev = rng.standard_normal((4, t_in, f_in, cin_src)).astype(np.float32)
+    ref = _jax_up(lys, skip, prev, t_in, "relu")
+    got = tail.up_shallow(_t(skip), _t(prev), *_stack(lys), act="relu")
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=2e-4)
+
+
+def test_head_matches_jax(rng):
+    """up6 + up7 + sigmoid at t2 = 64, f2 = 128 with random biases and batch
+    norms, so a missing domain mask on y6 would show at the edges."""
+    t2, f2 = 64, 128
+    up6 = _rand_layer(rng, 32, 1)
+    w7 = (rng.standard_normal((4, 4, 1, 2)) * 0.3).astype(np.float32)
+    b7 = (0.1 * rng.standard_normal(2)).astype(np.float32)
+    skip1 = rng.standard_normal((2, t2, f2, 16)).astype(np.float32)
+    up5o = rng.standard_normal((2, t2, f2, 16)).astype(np.float32)
+    j = lambda a: jnp.asarray(a)[None]
+    ref = np.asarray(jtail.unpack_mask(
+        jtail.head_packed(
+            jtail.pad_pk_head(jtail.quad_pack_nhwc(jnp.asarray(skip1), 16)),
+            jtail.pad_pk_head(jtail.quad_pack_nhwc(jnp.asarray(up5o), 16)),
+            j(up6["w"]), j(up6["b"]), j(up6["bn_scale"]), j(up6["bn_shift"]),
+            j(w7), j(b7), t2=t2, act="elu", compute_dtype=jnp.float32,
+        ),
+        t2, f2,
+    ))  # NHWC (B, T, F, 2)
+    w6, b6, s6, h6 = _stack([up6])
+    got = tail.head(
+        _t(skip1), _t(up5o), w6, b6, s6, h6,
+        _t(w7.transpose(3, 2, 0, 1))[None], _t(b7)[None], act="elu",
+    )
+    assert got.shape == (1, 2, 2, 2 * t2, 2 * f2) and got.dtype == torch.float32
+    np.testing.assert_allclose(got[0].permute(0, 2, 3, 1).numpy(), ref,
+                               atol=2e-5, rtol=1e-4)
+
+
+def _faulted_head(skip1, up5, w6, b6, s6, h6, w7, b7, *, act, fault):
+    """The head with a planted fault: "domain", y6 not zeroed outside the
+    image (the decoder epilogue runs on up6's full transposed conv 3 pixels
+    out, where up7 reads it); "shift", up7 reading y6 one column off."""
+    dtype = skip1.dtype
+    x = torch.cat([skip1, up5], -1).float().permute(0, 3, 1, 2)
+    masks = []
+    for s, xs in enumerate(x.chunk(w6.shape[0])):
+        epi = lambda z: s6[s][:, None, None] * model.activation(
+            z + b6[s][:, None, None], act) + h6[s][:, None, None]
+        w = w6[s].to(dtype).float()
+        w7s = w7[s].to(dtype).float()
+        if fault == "domain":  # y6 over [-3, 2H + 3), then up7 unpadded
+            y = epi(model.tconv_same(F.pad(xs, (2, 2, 2, 2)), w))[..., 1:-1, 1:-1]
+            logit = F.conv2d(y.to(dtype).float(), w7s, dilation=2)
+        else:
+            y = epi(model.tconv_same(xs, w))
+            if fault == "shift":
+                y = F.pad(y, (1, 0))[..., :-1]
+            logit = model.conv_dilated_final(y.to(dtype).float(), w7s)
+        masks.append(torch.sigmoid(logit + b7[s][:, None, None]))
+    return torch.stack(masks)
+
+
+@pytest.mark.parametrize("fault", ["domain", "shift"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_error_bound_fails_planted_faults(rng, dtype, fault):
+    """tail.head_error_bound, which the card checks hold K6 to, admits the
+    plain head and fails a head without the y6 domain mask or with up7 one
+    column off, at 2 stems x 2 tiles with random biases and batch norms."""
+    t2, f2 = 32, 64
+    w6, b6, s6, h6 = _stack([_rand_layer(rng, 32, 1) for _ in range(2)])
+    w7 = _t((rng.standard_normal((2, 2, 1, 4, 4)) * 0.3).astype(np.float32))
+    b7 = _t((0.1 * rng.standard_normal((2, 2))).astype(np.float32))
+    src = [_t(rng.standard_normal((4, t2, f2, 16)).astype(np.float32)).to(dtype)
+           for _ in range(2)]
+    args = (*src, w6, b6, s6, h6, w7, b7)
+    ref = tail.head(*args, act="elu")
+    bound = tail.head_error_bound(*args, act="elu")
+    assert bound.shape == ref.shape == (2, 2, 2, 2 * t2, 2 * f2)
+    assert torch.all(bound < 0.1)  # on the masks' scale, which is [0, 1]
+    clean = _faulted_head(*args, act="elu", fault="none")
+    assert torch.all((clean - ref).abs() <= bound)
+    err = (_faulted_head(*args, act="elu", fault=fault) - ref).abs()
+    assert (err / bound).max() > 10
+
+
+def _random_nets(rng, n):
+    """n full nets: the JAX package's init_params with random biases and
+    batch norms; numpy leaves in the JAX layout."""
+    nets = []
+    for i in range(n):
+        p = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(i)))
+        for ly in p.values():
+            c = ly["b"].shape[0]
+            ly["b"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+            if "bn_scale" in ly:
+                ly["bn_scale"] = (1 + 0.2 * rng.standard_normal(c)).astype(np.float32)
+                ly["bn_shift"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        nets.append(p)
+    return (
+        jweights.stack_params(nets),
+        weights.stack_params([weights.params_from_jax(p) for p in nets]),
+    )
+
+
+def _jax_packed(fn):
+    """fn() with the JAX package forced onto its packed U-Net."""
+    try:
+        jmodel.FORCE_PACKED_UNET = True
+        jmodel.unet_forward.clear_cache()
+        return fn()
+    finally:
+        jmodel.FORCE_PACKED_UNET = None
+        jmodel.unet_forward.clear_cache()
+
+
+def test_packed_unet_matches_jax_packed(rng):
+    """The port's multi_stem_forward on the CPU (packed route, plain
+    versions) against the JAX package's packed U-Net, 2 stems."""
+    jstacked, stacked = _random_nets(rng, 2)
+    mag = (np.abs(rng.standard_normal((2, 64, 128, 2))) * 3.0).astype(np.float32)
+    assert model.use_packed_unet(stacked, _t(mag.transpose(0, 3, 1, 2)), "exact")
+    ref = _jax_packed(lambda: np.asarray(jmodel.multi_stem_forward(
+        jstacked, jnp.asarray(mag), compute_dtype=jnp.float32)))
+    kernels.reset_launch_counts()
+    got = model.multi_stem_forward(stacked, _t(mag), STEM_MODE_4, torch.float32)
+    assert not any(kernels.launch_counts().values())
+    assert got.shape == ref.shape == (2, *mag.shape)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=2e-4)
+
+
+def test_separate_4stem_matches_jax_packed_fused(rng, monkeypatch):
+    """4 stems over 2 tiles: the port's separate_nstem against the JAX
+    package's fused graph (fused STFT, packed U-Net, fused masked iSTFT)."""
+    monkeypatch.setenv("SPLEETERRT_FUSED_STFT", "1")
+    cfg = SeparatorConfig(bin_limit=512, time_step=64, num_stems=4,
+                          compute_dtype=torch.float32)
+    jcfg = JSeparatorConfig(bin_limit=512, time_step=64, num_stems=4,
+                            compute_dtype=jnp.float32)
+    jstacked, stacked = _random_nets(rng, 4)
+    x = (rng.standard_normal((2, 90_000)) * 0.3).astype(np.float32)
+    padded = np.array(jtransform.pad_offline(jnp.asarray(x), jcfg.transform))
+    caches = (jseparate.separate_nstem, jstft_fused.stft4096_packed,
+              jstft_fused.masked_istft4096_cd)
+    for f in caches:
+        f.clear_cache()
+    try:
+        ref = _jax_packed(lambda: np.asarray(jseparate.separate_nstem(
+            jstacked, jnp.asarray(padded), jcfg, separate.OUT_BAND_4)))
+    finally:
+        for f in caches:
+            f.clear_cache()
+    got = separate.separate_nstem(stacked, _t(padded), cfg, separate.OUT_BAND_4)
+    n_out = got.shape[-1] // 1024 - 3
+    assert separate.num_tiles(n_out, cfg.time_step) >= 2
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-4)
+
+
+def test_routing_follows_the_reference_gate(monkeypatch):
+    """The packed route takes the standard net at tile shapes the kernels
+    take with the exact sigmoid, on any device; the LUT sigmoid and other
+    shapes go to the canonical per-stem nets."""
+    gen = torch.Generator().manual_seed(0)
+    stacked = weights.stack_params([model.init_params(gen) for _ in range(2)])
+    vst = torch.empty((51, 2, 256, 1536), device="meta")
+    assert model.use_packed_unet(stacked, vst, "exact")
+    assert not model.use_packed_unet(stacked, vst, "lut")
+    for t, f in ((32, 128), (64, 96), (96, 128)):
+        assert not model.use_packed_unet(
+            stacked, torch.empty((1, 2, t, f), device="meta"), "exact")
+
+    calls = []
+    real = model.packed_unet_masks
+    monkeypatch.setattr(model, "packed_unet_masks",
+                        lambda *a: calls.append("packed") or real(*a))
+    mag = torch.rand((1, 2, 64, 128), generator=gen) * 3
+    model.multi_stem_masks(stacked, mag, sigmoid="exact")
+    assert calls == ["packed"]
+    got = model.multi_stem_masks(stacked, mag, sigmoid="lut")
+    assert calls == ["packed"]
+    ref = torch.stack([
+        model.unet_forward_nchw(model.stem_params(stacked, s), mag, sigmoid="lut")
+        for s in range(2)
+    ])
+    assert torch.equal(got, ref)
+
+
+def test_tail_wrappers_reject_bad_inputs(rng):
+    ly = _rand_layer(rng, 64, 16)
+    w, b, s, h = _stack([ly])
+    x = torch.rand(2, 8, 8, 32)
+    with pytest.raises(ValueError, match="shapes differ"):
+        tail.up_shallow(x, torch.rand(2, 8, 4, 32), w, b, s, h, act="elu")
+    with pytest.raises(ValueError, match="prev"):
+        tail.up_shallow(x, x.to(torch.bfloat16), w, b, s, h, act="elu")
+    with pytest.raises(ValueError, match="channels"):
+        tail.up_shallow(torch.rand(2, 8, 8, 16), torch.rand(2, 8, 8, 16),
+                        w, b, s, h, act="elu")
+    with pytest.raises(ValueError, match="act"):
+        tail.up_shallow(x, x, w, b, s, h, act="leaky")
+    with pytest.raises(ValueError, match="contiguous"):
+        tail.up_shallow(x.transpose(1, 2), x, w, b, s, h, act="elu")
+    up6 = _rand_layer(rng, 32, 1)
+    w6, b6, s6, h6 = _stack([up6])
+    w7, b7 = torch.rand(1, 2, 1, 4, 4), torch.rand(1, 2)
+    src = torch.rand(2, 32, 32, 16)
+    with pytest.raises(ValueError, match="w7"):
+        tail.head(src, src, w6, b6, s6, h6, w7[:, :1].contiguous(), b7, act="elu")
+    with pytest.raises(ValueError, match="disagree"):
+        tail.head(src, src, w6, b6, s6, h6, w7.repeat(2, 1, 1, 1, 1),
+                  b7.repeat(2, 1), act="elu")
+    with pytest.raises(ValueError, match="16 channels"):
+        tail.head(torch.rand(2, 32, 32, 8), torch.rand(2, 32, 32, 8),
+                  w6, b6, s6, h6, w7, b7, act="elu")
