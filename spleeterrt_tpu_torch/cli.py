@@ -78,7 +78,8 @@ def _clamp_args(args) -> None:
     args.bin_limit = args.bin_limit // 64 * 64
 
 
-def _device(name: str) -> torch.device:
+def open_device(name: str) -> torch.device:
+    """The torch device `name`; a CUDA device without a card exits."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -88,19 +89,20 @@ def _device(name: str) -> torch.device:
     return dev
 
 
-def _load_weights(args, cfg, device):
-    """Stacked (drums, bass, accompaniment, vocals) params on `device`."""
+def load_weights(weights_dir, random_weights: bool, seed: int, cfg, device):
+    """Stacked (drums, bass, accompaniment, vocals) params on `device`: the
+    VST blobs in `weights_dir`, or random ones drawn from `seed`."""
     from spleeterrt_tpu_torch.core import model, weights
 
-    if args.random_weights or args.weights is None:
-        if not args.random_weights:
+    if random_weights or weights_dir is None:
+        if not random_weights:
             print("no --weights given; using random weights")
-        gen = torch.Generator().manual_seed(args.seed)
+        gen = torch.Generator().manual_seed(seed)
         ps = [model.init_params(gen) for _ in range(cfg.num_stems)]
-    elif os.path.isdir(args.weights):
+    elif os.path.isdir(weights_dir):
         ps = [
             weights.load_coeff_file(
-                os.path.join(args.weights, weights.VST_BLOB_FILENAMES[stem])
+                os.path.join(weights_dir, weights.VST_BLOB_FILENAMES[stem])
             )
             for stem in cfg.stem_names
         ]
@@ -134,7 +136,7 @@ def main(argv=None) -> int:
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
     )
     separate.check_ported(cfg)
-    device = _device(args.device)
+    device = open_device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"spleeterrt-tpu-torch: device {device} ({name})")
 
@@ -150,7 +152,8 @@ def main(argv=None) -> int:
     print(f"Audio load + resample: {time.perf_counter() - t0:.3f} s "
           f"({samples.shape[1] / 44100.0:.1f} s of audio)")
 
-    stacked = _load_weights(args, cfg, device)
+    stacked = load_weights(args.weights, args.random_weights, args.seed,
+                           cfg, device)
 
     prof = None
     if args.profile:

@@ -6,11 +6,15 @@ Reference: the offline frame-block loop `processMT`
 `timeStep`-frame windows; here every tile is one row of a batch axis and
 each stem's U-Net runs once over all tiles.
 
-Dataflow of `separate_nstem` (the reference package's fused graph,
-spleeterrt_tpu/core/separate.py::_separate_nstem_fused, with its canonical
-U-Net branch): one fused STFT kernel writes the complex spectrum and the
-U-Net's magnitude tiles; the U-Net emits per-stem masks; one fused masked
-iSTFT kernel emits overlap-added audio for every stem.
+Dataflow of `separate_nstem` at the reference's transform (FFT 4096, hop
+1024; the reference package's fused graph,
+spleeterrt_tpu/core/separate.py::_separate_nstem_fused): one fused STFT
+kernel writes the complex spectrum and the U-Net's magnitude tiles; the
+U-Net emits per-stem masks; one fused masked iSTFT kernel emits
+overlap-added audio for every stem. At any other hop of a 4096-point FFT
+(in practice `TransformConfig(overlap=2)`) it is the reference's
+non-fused branch: a plain torch.fft STFT, the U-Net, the masked inverse
+FFT kernel K9 with frames out, and a plain overlap-add.
 
 Scale conventions: with core/transform.py's windows, `abs(stft(x))` equals
 the `hypotf(re, im) * FFTSIZE` magnitude the C code computes
@@ -30,7 +34,7 @@ from spleeterrt_tpu_torch.core.model import (
     multi_stem_forward,
     multi_stem_masks,
 )
-from spleeterrt_tpu_torch.kernels import stft_fused
+from spleeterrt_tpu_torch.kernels import pallas_fft, stft_fused
 
 # Out-of-band weights of the 4-stem family: the RT engine fixes 0.25 for
 # every stem except bass at 0.0 (VST/Source/Spleeter4Stems.c:73,281).
@@ -96,20 +100,30 @@ def separate_nstem(
     out_band: tuple[float, ...],
 ) -> torch.Tensor:
     """S independent nets over the same input, one mask per stem -> stems
-    (S, 2ch, out_len) with out_len = n_frames * hop + 3072 >= data_size.
+    (S, 2ch, out_len) with out_len = n_frames * hop + fft_size - hop >=
+    data_size.
 
-    Tensors on a CUDA device run the fused kernels; CPU tensors run their
-    plain versions (kernels/stft_fused.py)."""
+    Tensors on a CUDA device run the kernels; CPU tensors run their plain
+    versions (kernels/stft_fused.py, kernels/pallas_fft.py)."""
     tcfg = cfg.transform
-    if (tcfg.fft_size, tcfg.hop) != (stft_fused.N, stft_fused.HOP):
+    if tcfg.fft_size != stft_fused.N:
         raise NotImplementedError(
-            _NOT_PORTED.format("a transform other than 4096/1024")
+            _NOT_PORTED.format("a transform other than FFT 4096")
         )
     data_size = audio.shape[-1]
+    dev = audio.device
+    out_band_t = torch.tensor(out_band, dtype=torch.float32, device=dev)
+    if tcfg.hop != stft_fused.HOP:
+        spec = transform.stft(audio, tcfg, data_size)
+        masks = compute_masks_multi(stacked_params, spec, cfg, STEM_MODE_4)
+        frames = pallas_fft.masked_irfft4096(
+            spec, masks, out_band_t, cfg.bin_limit,
+            transform.synthesis_window(tcfg, device=dev),
+        )
+        return transform.overlap_add(frames, tcfg)
     n_out = transform.num_output_frames(data_size, tcfg)
     n_comp = transform.num_computed_frames(data_size, tcfg)
     n_req = num_tiles(n_out, cfg.time_step) * cfg.time_step
-    dev = audio.device
 
     spec, mag = stft_fused.stft4096(
         audio, transform.analysis_window(tcfg.fft_size, device=dev), n_comp,
@@ -119,8 +133,8 @@ def separate_nstem(
         stacked_params, mag, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
     )  # (S, n_tiles, 2, T, F)
     return stft_fused.masked_istft4096(
-        spec, masks, torch.tensor(out_band, dtype=torch.float32, device=dev),
-        transform.synthesis_window(tcfg, device=dev), n_out,
+        spec, masks, out_band_t, transform.synthesis_window(tcfg, device=dev),
+        n_out,
     )
 
 

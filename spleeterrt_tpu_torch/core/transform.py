@@ -18,7 +18,10 @@ hop)` total rows (the excess rows stay zero). iSTFT overlap-adds all rows
 (Executable/stftFix.c:496-579).
 
 These are the plain formulations (`torch.fft`) that the fused kernels in
-kernels/stft_fused.py are held against.
+kernels/stft_fused.py are held against. The one exception is `irfft`, which
+routes every 4096-point inverse FFT to the K8 kernel
+(kernels/pallas_fft.py) as the reference's `irfft` routes it to its Pallas
+kernel; on CPU tensors that is the kernel's plain torch.fft version.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from spleeterrt_tpu_torch.config import TransformConfig
+from spleeterrt_tpu_torch.kernels import pallas_fft
 
 
 def analysis_window(
@@ -113,15 +117,28 @@ def overlap_add(frames: torch.Tensor, cfg: TransformConfig) -> torch.Tensor:
     return out.reshape(*frames.shape[:-2], (n_frames + lap - 1) * hop)
 
 
+def irfft(
+    spec: torch.Tensor, n: int, window: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Inverse real FFT along the last axis, times `window` if one is given.
+
+    n == 4096 goes to the K8 kernel (`pallas_fft.irfft4096`; its plain
+    version on CPU tensors); any other n to torch.fft, where the reference
+    has no kernel either."""
+    if n == pallas_fft.N:
+        return pallas_fft.irfft4096(spec.contiguous(), window)
+    out = torch.fft.irfft(spec, n=n, dim=-1)
+    return out if window is None else out * window
+
+
 def istft(spec: torch.Tensor, cfg: TransformConfig) -> torch.Tensor:
     """Inverse of :func:`stft` (with masks applied in between).
 
     Returns (..., n_frames*hop + fft_size - hop) audio; a mask-of-ones round
     trip reproduces the input at unity gain (Executable/stftFix.c:496-579).
     """
-    frames = torch.fft.irfft(spec, n=cfg.fft_size, dim=-1)
-    win = synthesis_window(cfg, frames.dtype, frames.device)
-    return overlap_add(frames * win, cfg)
+    win = synthesis_window(cfg, torch.float32, spec.device)
+    return overlap_add(irfft(spec, cfg.fft_size, win), cfg)
 
 
 def offline_pad_sizes(num_pcm_frames: int, cfg: TransformConfig) -> tuple[int, int]:

@@ -1,10 +1,11 @@
-// Shared pieces of the fused STFT (stft.cu) and masked iSTFT (istft.cu)
-// kernels: constants, complex helpers and a 2048-point complex FFT in shared
-// memory.
+// Shared pieces of the fused STFT (stft.cu), masked iSTFT (istft.cu) and
+// frames-out inverse FFT (irfft.cu) kernels: constants, complex helpers, a
+// 2048-point complex FFT in shared memory and the masked Hermitian merge
+// that feeds its inverse.
 //
 // A real 4096-point transform runs as one 2048-point complex FFT of the
 // even/odd sample pairs z[n] = x[2n] + i x[2n+1], plus an O(N) split step
-// (stft.cu) or merge step (istft.cu). Twiddles come from one table,
+// (stft.cu) or merge step (merge_hermitian). Twiddles come from one table,
 // tw[j] = exp(-2 pi i j / 4096) for j in [0, 2048), computed in float64 on
 // the host and rounded once to float32, so no on-card sin/cos is used.
 #pragma once
@@ -18,7 +19,8 @@ constexpr int kHop = 1024;        // hop (HOPSIZE)
 constexpr int kBins = kN / 2 + 1; // 2049 bins of the real transform
 constexpr int kHalf = kN / 2;     // complex FFT length
 constexpr int kLog2Half = 11;
-constexpr int kThreads = 512;     // threads per block in both kernels
+constexpr int kThreads = 512;     // threads per block in every FFT kernel
+constexpr float kInvN = 1.0f / kN;  // irfft scale, exact
 
 static __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -49,6 +51,40 @@ static __device__ __forceinline__ void fft2048(float2* buf,
     }
     __syncthreads();
   }
+}
+
+// Bin k of the masked spectrum: X[k] times m[k] below bin_limit and
+// out_band from it on, with the imaginary parts of DC and Nyquist dropped
+// (irfft semantics). bin_limit 0 with out_band 1 gives X unmasked, exactly.
+static __device__ __forceinline__ float2 masked_bin(const float2* __restrict__ X,
+                                                    const float* __restrict__ m,
+                                                    float out_band,
+                                                    int bin_limit, int k) {
+  float2 v = X[k];
+  const float g = k < bin_limit ? m[k] : out_band;
+  v.x *= g;
+  v.y = (k == 0 || k == kHalf) ? 0.f : v.y * g;
+  return v;
+}
+
+// Merge the masked Hermitian half-spectrum Y (masked_bin of X) into buf,
+// in bit-reversed order, as the 2048-point complex input
+// Z[k] = (Y[k] + conj Y[2048-k]) + i conj(W^k) (Y[k] - conj Y[2048-k]),
+// whose unnormalised inverse FFT is N (y[2n] + i y[2n+1]). Ends
+// synchronised, ready for fft2048<true>.
+static __device__ __forceinline__ void merge_hermitian(
+    float2* buf, const float2* __restrict__ X, const float* __restrict__ m,
+    float out_band, int bin_limit, const float2* __restrict__ tw) {
+  for (int k = threadIdx.x; k < kHalf; k += blockDim.x) {
+    const float2 a = masked_bin(X, m, out_band, bin_limit, k);
+    const float2 c = masked_bin(X, m, out_band, bin_limit, kHalf - k);
+    const float2 b = make_float2(c.x, -c.y);
+    float2 w = __ldg(&tw[k]);
+    w.y = -w.y;
+    const float2 t = cmul(w, make_float2(a.x - b.x, a.y - b.y));
+    buf[bitrev11(k)] = make_float2(a.x + b.x - t.y, a.y + b.y + t.x);
+  }
+  __syncthreads();
 }
 
 }  // namespace spleeterrt

@@ -31,18 +31,6 @@ namespace spleeterrt {
 
 constexpr int kSpanHops = 8;                             // output hops per block
 constexpr int kPerThread = kSpanHops * kHop / kThreads;  // 16 samples a thread
-constexpr float kInvN = 1.0f / kN;                       // irfft scale, exact
-
-static __device__ __forceinline__ float2 masked_bin(const float2* __restrict__ X,
-                                                    const float* __restrict__ m,
-                                                    float out_band,
-                                                    int bin_limit, int k) {
-  float2 v = X[k];
-  const float g = k < bin_limit ? m[k] : out_band;
-  v.x *= g;
-  v.y = (k == 0 || k == kHalf) ? 0.f : v.y * g;
-  return v;
-}
 
 static __global__ void __launch_bounds__(kThreads)
 masked_istft4096_kernel(const float2* __restrict__ spec,
@@ -71,20 +59,9 @@ masked_istft4096_kernel(const float2* __restrict__ spec,
     const float* m =
         masks + (((static_cast<long long>(s) * n_tiles + f / time_step) * rows +
                   r) * time_step + f % time_step) * bin_limit;
-    // Merge the Hermitian half-spectrum into the 2048-point complex input
-    // Z[k] = (Y[k] + conj Y[2048-k]) + i conj(W^k) (Y[k] - conj Y[2048-k]),
-    // whose unnormalised inverse FFT is N (y[2n] + i y[2n+1]); the 1/N is
-    // folded into the window product below.
-    for (int k = threadIdx.x; k < kHalf; k += blockDim.x) {
-      const float2 a = masked_bin(X, m, ob, bin_limit, k);
-      const float2 c = masked_bin(X, m, ob, bin_limit, kHalf - k);
-      const float2 b = make_float2(c.x, -c.y);
-      float2 w = __ldg(&tw[k]);
-      w.y = -w.y;
-      const float2 t = cmul(w, make_float2(a.x - b.x, a.y - b.y));
-      buf[bitrev11(k)] = make_float2(a.x + b.x - t.y, a.y + b.y + t.x);
-    }
-    __syncthreads();
+    // The inverse FFT gives N times the frame; the 1/N is folded into the
+    // window product below.
+    merge_hermitian(buf, X, m, ob, bin_limit, tw);
     fft2048<true>(buf, tw);
 
     // buf now holds the frame's time samples in order, as floats.

@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels: wrappers, plain versions, counts.
 
 K1 `stft_fused.stft4096`, K2 `encoder.enc1`, K3 `encoder.enc_s2` (enc2,
-enc3 and enc4), K4 and K5 `tail.up_shallow` (up4, up5), K6 `tail.head`
-and K7 `stft_fused.masked_istft4096`. Each wrapper checks its tensors,
-takes its plain torch version for a tensor on the CPU, and launches its
-kernel or raises for a CUDA tensor.
+enc3 and enc4), K4 and K5 `tail.up_shallow` (up4, up5), K6 `tail.head`,
+K7 `stft_fused.masked_istft4096`, K8 `pallas_fft.irfft4096` and K9
+`pallas_fft.masked_irfft4096`. Each wrapper checks its tensors, takes its
+plain torch version for a tensor on the CPU, and launches its kernel or
+raises for a CUDA tensor.
 
 Launch counts live here, one per kernel name, so one place shows whether a
 run went through the kernels: `reset_launch_counts()` before the run,
@@ -14,6 +15,9 @@ kernel, never for a plain call.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 # The compute dtypes the U-Net kernels take, and their activation codes
@@ -23,7 +27,7 @@ ACT_CODES = {"elu": 0, "leaky": 1, "relu": 2}
 
 # Kernel names in dataflow order; up_shallow counts up4 and up5 apart.
 KERNELS = ("stft4096", "enc1", "enc_s2", "up4", "up5", "head",
-           "masked_istft4096")
+           "masked_istft4096", "irfft4096", "masked_irfft4096")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -64,6 +68,14 @@ def launch(fn, *args) -> None:
 
 def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.cache
+def twiddles4096(device: torch.device) -> torch.Tensor:
+    """The FFT kernels' table (csrc/fft2048.cuh): tw[j] = exp(-2 pi i j /
+    4096), j < 2048, in float64 math with one rounding to complex64."""
+    tw = np.exp(-2j * np.pi * np.arange(2048) / 4096).astype(np.complex64)
+    return torch.from_numpy(tw).to(device)
 
 
 def check_layer(

@@ -20,7 +20,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from spleeterrt_tpu_torch.config import TransformConfig
@@ -31,6 +30,7 @@ from spleeterrt_tpu_torch.kernels import (
     count_launch,
     launch as _launch,
     stream_of,
+    twiddles4096,
 )
 
 N = 4096
@@ -49,13 +49,6 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.spleeterrt_masked_istft4096.restype = i
     return lib
-
-
-@functools.cache
-def _twiddles(device: torch.device) -> torch.Tensor:
-    """tw[j] = exp(-2 pi i j / 4096), j < 2048: float64 math, one rounding."""
-    tw = np.exp(-2j * np.pi * np.arange(N // 2) / N).astype(np.complex64)
-    return torch.from_numpy(tw).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +114,7 @@ def stft4096(
         _launch(
             _lib().spleeterrt_stft4096,
             audio.data_ptr(), rows, data_size, window.data_ptr(),
-            _twiddles(dev).data_ptr(), n_comp, n_req, bin_limit, time_step,
+            twiddles4096(dev).data_ptr(), n_comp, n_req, bin_limit, time_step,
             spec.data_ptr(), mag.data_ptr(), stream_of(dev),
         )
     count_launch("stft4096")
@@ -185,7 +178,7 @@ def masked_istft4096(
         _launch(
             _lib().spleeterrt_masked_istft4096,
             spec.data_ptr(), masks.data_ptr(), out_band.data_ptr(),
-            window.data_ptr(), _twiddles(dev).data_ptr(), s, rows, n_frames,
+            window.data_ptr(), twiddles4096(dev).data_ptr(), s, rows, n_frames,
             n_spec, nt, t, f, out.data_ptr(), stream_of(dev),
         )
     count_launch("masked_istft4096")

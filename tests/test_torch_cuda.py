@@ -4,13 +4,15 @@ chip_smoke.py checks the kernels at the main path's shapes; these tests
 add edge shapes: for K1/K7 lengths that end mid-frame, one and three rows,
 the narrowest and widest bin limits, spans that end mid-block; for K2-K6
 the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
-one tile and an odd tile count, one stem and four, both compute dtypes.
+one tile and an odd tile count, one stem and four, both compute dtypes;
+for K8/K9 one frame and odd frame counts, bin limits 512 and 2048, with
+and without a window; and one streaming block step at K = 1.
 Where there is no CUDA device every test skips. On a machine with one
 (which may lack jax, which tests/conftest.py imports):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Bounds: K1/K7 are fp32 FFTs that round in another order; an indexing
+Bounds: K1/K7/K8/K9 are fp32 FFTs that round in another order; an indexing
 fault gives errors of order max|X|, rounding about 1e-7 of it. K2-K5 sum
 in fp32 like their plain versions (TF32 off): 1e-5 of max|plain| in fp32;
 in bf16 the outputs round once, so a sum that lands on the other side of
@@ -25,9 +27,10 @@ import pytest
 import torch
 
 from spleeterrt_tpu_torch import kernels
-from spleeterrt_tpu_torch.config import TransformConfig
+from spleeterrt_tpu_torch.config import SeparatorConfig, TransformConfig
 from spleeterrt_tpu_torch.core import model, transform
-from spleeterrt_tpu_torch.kernels import encoder, stft_fused, tail
+from spleeterrt_tpu_torch.kernels import encoder, pallas_fft, stft_fused, tail
+from spleeterrt_tpu_torch.runtime import stream
 
 pytestmark = pytest.mark.cuda
 
@@ -231,7 +234,8 @@ def test_packed_unet_runs_every_kernel_once(device):
     got = model.multi_stem_masks(stacked, mag)
     counts = kernels.launch_counts()
     assert counts == {"stft4096": 0, "enc1": 1, "enc_s2": 3, "up4": 1,
-                      "up5": 1, "head": 1, "masked_istft4096": 0}
+                      "up5": 1, "head": 1, "masked_istft4096": 0,
+                      "irfft4096": 0, "masked_irfft4096": 0}
     cpu = {k: {f: v.cpu() for f, v in ly.items()} for k, ly in stacked.items()}
     ref = model.multi_stem_masks(cpu, mag.cpu())
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
@@ -263,3 +267,91 @@ def test_unet_wrappers_refuse_mixed_and_bad_inputs(device):
     with pytest.raises(ValueError, match="w7 is on cpu"):
         tail.head(h, h, *w6, w7.cpu(), b7, act="elu")
     assert not any(kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# K8/K9: the frames-out inverse FFT, and the streaming block step
+# ---------------------------------------------------------------------------
+
+
+def _spec(device, shape, seed):
+    gen = torch.Generator().manual_seed(seed)
+    re, im = torch.randn((2, *shape, 2049), generator=gen)
+    return torch.complex(re, im).to(device)
+
+
+def _fft_close(got, ref):
+    assert got.shape == ref.shape
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * max(1.0, ref.abs().max().item()), f"max error {err}"
+
+
+@pytest.mark.parametrize("shape", [(1,), (3, 37), (2, 4, 2, 65)])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_irfft_kernel_matches_plain(device, shape, windowed):
+    spec = _spec(device, shape, len(shape))
+    window = transform.synthesis_window(TCFG, device=device) if windowed else None
+    y = _counted("irfft4096", pallas_fft.irfft4096, spec, window)
+    _fft_close(y, pallas_fft.irfft4096_plain(spec, window))
+    assert torch.equal(y, pallas_fft.irfft4096(spec, window))  # deterministic
+
+
+@pytest.mark.parametrize("frames", [1, 129])
+@pytest.mark.parametrize("bin_limit", [512, 2048])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_masked_irfft_kernel_matches_plain(device, frames, bin_limit, windowed):
+    spec = _spec(device, (2, frames), frames + bin_limit)
+    gen = torch.Generator(device=device).manual_seed(frames)
+    masks = torch.rand((3, 2, frames, bin_limit), generator=gen, device=device)
+    out_band = torch.tensor([0.25, 0.0, 0.7], device=device)
+    window = transform.synthesis_window(TCFG, device=device) if windowed else None
+    args = (spec, masks, out_band, bin_limit, window)
+    y = _counted("masked_irfft4096", pallas_fft.masked_irfft4096, *args)
+    assert y.shape == (3, 2, frames, 4096)
+    _fft_close(y, pallas_fft.masked_irfft4096_plain(*args))
+    assert torch.equal(y, pallas_fft.masked_irfft4096(*args))
+
+
+def test_irfft_wrappers_refuse_mixed_devices_and_dtypes(device):
+    kernels.reset_launch_counts()
+    spec = _spec(device, (2, 3), 0)
+    with pytest.raises(ValueError, match="window is on cpu"):
+        pallas_fft.irfft4096(spec, transform.synthesis_window(TCFG))
+    with pytest.raises(ValueError, match="complex64"):
+        pallas_fft.irfft4096(spec.to(torch.complex128))
+    masks = torch.rand((1, 2, 3, 512), device=device)
+    with pytest.raises(ValueError, match="masks is on cpu"):
+        pallas_fft.masked_irfft4096(spec, masks.cpu(), torch.ones(1, device=device), 512)
+    with pytest.raises(ValueError, match="float32"):
+        pallas_fft.masked_irfft4096(spec, masks.half(), torch.ones(1, device=device), 512)
+    with pytest.raises(ValueError, match="out_band is on cpu"):
+        pallas_fft.masked_irfft4096(spec, masks, torch.ones(1), 512)
+    assert not any(kernels.launch_counts().values())
+
+
+def test_block_step_streams_launches_each_kernel_once(device):
+    """One streaming block at K = 1 (one full-width image per stem): K1,
+    the packed U-Net and K8 once each, K3 three times; the output matches
+    the same block step on CPU tensors."""
+    cfg = SeparatorConfig(bin_limit=512, time_step=64, num_stems=4,
+                          compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    params = [model.init_params(gen) for _ in range(2)]
+    cpu = {k: {f: torch.stack([p[k][f] for p in params]) for f in params[0][k]}
+           for k in params[0]}
+    stacked = {k: {f: v.to(device) for f, v in ly.items()} for k, ly in cpu.items()}
+    blocks = torch.randn((3, 1, 2, 64 * 1024), generator=gen) * 0.3
+    state = stream.init_state_streams(cfg, 2, 1, device)
+    ref_state = stream.init_state_streams(cfg, 2, 1)
+    for i in range(3):
+        kernels.reset_launch_counts()
+        state, out = stream.block_step_streams(stacked, state, blocks[i].to(device),
+                                               cfg, 2, (0.25, 0.0))
+        assert kernels.launch_counts() == {
+            "stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1,
+            "head": 1, "masked_istft4096": 0, "irfft4096": 1,
+            "masked_irfft4096": 0}
+        ref_state, ref = stream.block_step_streams(cpu, ref_state, blocks[i], cfg,
+                                                   2, (0.25, 0.0))
+    assert ref.abs().max() > 0.01
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4

@@ -23,13 +23,14 @@ from jax.experimental import pallas as pl
 from spleeterrt_tpu import cli as jcli
 from spleeterrt_tpu.config import STEM_MODE_4
 from spleeterrt_tpu.config import SeparatorConfig as JSeparatorConfig
+from spleeterrt_tpu.config import TransformConfig as JTransformConfig
 from spleeterrt_tpu.core import model as jmodel
 from spleeterrt_tpu.core import separate as jseparate
 from spleeterrt_tpu.core import transform as jtransform
 from spleeterrt_tpu.core import weights as jweights
 from spleeterrt_tpu.kernels import stft_fused as jstft_fused
 from spleeterrt_tpu_torch import cli
-from spleeterrt_tpu_torch.config import SeparatorConfig
+from spleeterrt_tpu_torch.config import SeparatorConfig, TransformConfig
 from spleeterrt_tpu_torch.core import separate, transform, weights
 from spleeterrt_tpu_torch.io import audio
 from spleeterrt_tpu_torch import kernels
@@ -115,6 +116,39 @@ def test_graph_helpers_match_jax(rng):
     )
 
 
+def test_separate_overlap2_matches_jax(rng):
+    """TransformConfig(overlap=2), hop 2048: the graph's non-fused branch
+    (plain STFT, U-Net, K9's plain version, overlap-add) against the JAX
+    package's separate_nstem, whose CPU route is the same computation."""
+    jstacked, stacked = _stacked(range(4))
+    x = (rng.standard_normal((2, 3 * 4096 + 777)) * 0.3).astype(np.float32)
+    cfg = SeparatorConfig(transform=TransformConfig(overlap=2), bin_limit=512,
+                          time_step=64, num_stems=4, compute_dtype=torch.float32)
+    jcfg = JSeparatorConfig(transform=JTransformConfig(overlap=2),
+                            bin_limit=512, time_step=64, num_stems=4,
+                            compute_dtype=jnp.float32)
+    kernels.reset_launch_counts()
+    got = separate.separate(x, stacked_params=stacked, cfg=cfg, device="cpu")
+    assert not any(kernels.launch_counts().values())
+    ref = jseparate.separate(x, stacked_params=jstacked, cfg=jcfg)
+    assert list(got) == list(ref)
+    for name in ref:
+        assert got[name].shape == x.shape
+        assert np.abs(np.asarray(ref[name])).max() > 0.01
+        np.testing.assert_allclose(
+            got[name].numpy(), np.asarray(ref[name]), atol=2e-4
+        )
+
+
+def test_fft_sizes_other_than_4096_raise():
+    _, stacked = _stacked([0, 1, 2, 3])
+    cfg = SeparatorConfig(transform=TransformConfig(fft_size=2048),
+                          bin_limit=512, time_step=64, num_stems=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        separate.separate(np.zeros((2, 5000), np.float32),
+                          stacked_params=stacked, cfg=cfg, device="cpu")
+
+
 def test_unported_stem_counts_raise():
     _, stacked = _stacked([0])
     cfg = SeparatorConfig(bin_limit=512, time_step=64, num_stems=2)
@@ -186,6 +220,8 @@ def test_package_never_imports_jax():
         "import spleeterrt_tpu_torch.kernels.stft_fused\n"
         "import spleeterrt_tpu_torch.kernels.encoder\n"
         "import spleeterrt_tpu_torch.kernels.tail\n"
+        "import spleeterrt_tpu_torch.kernels.pallas_fft\n"
+        "import spleeterrt_tpu_torch.runtime.stream, spleeterrt_tpu_torch.cli_stream\n"
         "import spleeterrt_tpu_torch.io.resample, spleeterrt_tpu_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spleeterrt_tpu' or m.startswith('spleeterrt_tpu.')]\n"
