@@ -45,16 +45,45 @@ Phases, each of which raises (non-zero exit) on failure:
    4, 16 and 64 streams, carrying the state: ms per block, the aggregate
    realtime factor, peak memory, the largest K inside the 5.944 s block
    deadline, a stage breakdown at K = 16 and a profile at K = 1 and 16.
+10. 2, 3 and 5 stems through the CLI on the 30 s WAV (bf16): 2 stems at the
+   CLI's defaults (the reference exe's config: bin_limit 1024, time_step
+   512) with random weights, 3 stems from a quantized two-subnet file the
+   port's writer makes from seeded nets, 5 stems with random weights.
+   Launch counts (2 and 5 stems: K1, K2, K4-K7 once and K3 three times; 3
+   stems: K1 and K7 once, K2, K4, K5, K6 twice, K3 six times), the 2-stem
+   conservation |vocals + accompaniment - input| <= 1e-5, and per-stem SNR
+   against the plain fp32 graph (every wrapper's plain version, the
+   canonical cuDNN U-Net): >= 42 dB (bf16 CLI) and >= 80 dB (fp32 kernels).
+11. The round-3 route (K2, K3 x2, torch enc4..up5, K10): the 2-stem CLI
+   with an npz of a narrow-trunk net (save_npz, seeded), then the standard
+   net with model.FORCE_PACKED_UNET = False; launches K1, K2, K3 x2, K10,
+   K7 and no K4/K5/K6; a profile shows library convolutions only in
+   enc4..up5 (trunk_tail); SNR as in 10.
+12. 2-stem separation at 300 s at the exe config on the packed and the
+   round-3 routes (realtime factors), their U-Net stages beside the
+   canonical U-Net, K6 and K10 each beside its plain version, K10 and the
+   canonical head at S * B = 64 images (the round-3 gate's limit), and a
+   profile of each route.
 
-The last three lines are the kernel report (all nine kernels, each with
-its launches on the path that runs it), the card's nvidia-smi line and
-the JSON status line. Without a CUDA device the script exits non-zero and
-prints no result.
+Phase 2 also holds K10 against its plain version in float32 and bfloat16,
+per pixel to tail.head_error_bound on x's two halves, at the 2-stem exe
+shapes (3 tiles of 256 x 512 x 32) and on the 4-stem VST batch with its
+stems folded (S = 4, x = [skip1 | up5] of the plain chain), where it must
+also give K6's masks bit for bit. Phase 2's plain chain runs cuDNN's
+deterministic algorithms, so its errors repeat from run to run.
+
+The last three lines are the kernel report (all ten kernels, each with
+its launches on the path that runs it, its time beside its plain
+version's, the least time the card could take for its work, and a library
+call's time where one PyTorch call computes the same function), the
+card's nvidia-smi line and the JSON status line. Without a CUDA device
+the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -68,6 +97,7 @@ import torch
 
 from spleeterrt_tpu_torch import cli, cli_stream, kernels
 from spleeterrt_tpu_torch.config import (
+    STEM_MODE_2,
     STEM_MODE_4,
     STEMS_4,
     SeparatorConfig,
@@ -78,6 +108,7 @@ from spleeterrt_tpu_torch.io import audio as audio_io
 from spleeterrt_tpu_torch.kernels import (
     _build,
     encoder,
+    mask_head,
     pallas_fft,
     stft_fused,
     tail,
@@ -117,6 +148,27 @@ STREAM_QUALITY_BLOCKS = 4  # 23.8 s of the smoke audio
 STREAM_COUNTS = (1, 4, 16, 64)  # concurrent streams timed on one card
 BLOCK_LEN = TIME_STEP * 1024  # samples in one streaming block
 BLOCK_SECONDS = BLOCK_LEN / SR  # 5.944 s: a block step's deadline
+# The CLI's defaults, the reference exe's config: the 2- and 3-stem cells.
+EXE_BIN_LIMIT, EXE_TIME_STEP = 1024, 512
+# The 3-stem CLI: K1 and K7 once, each U-Net pass K2, K3 x3, K4, K5, K6.
+THREE_STEM_LAUNCHES = {"stft4096": 1, "enc1": 2, "enc_s2": 6, "up4": 2,
+                       "up5": 2, "head": 2, "masked_istft4096": 1}
+# The round-3 route of the 2-stem CLI: K2 and K3 for enc1..enc3, K10.
+ROUND3_LAUNCHES = {"stft4096": 1, "enc1": 1, "enc_s2": 2, "mask_head": 1,
+                   "masked_istft4096": 1}
+CONSERVATION_MAX = 1e-5  # |vocals + accompaniment - input|, 2 stems
+# A deep trunk that is not the standard one, the shallow ends standard:
+# (Cin, Cout) of the layers it replaces. The CLI's --weights npz takes it.
+NARROW_TRUNK = {"down4": (64, 96), "down5": (96, 192), "down6": (192, 384),
+                "up1": (384, 192), "up2": (384, 96), "up3": (192, 64)}
+HEAD_BATCH_LIMIT = model.PALLAS_HEAD_MAX_BATCH  # K10 vs canonical head here
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
+# 700 W): a kernel's bound is the larger of its bytes over the memory rate
+# and its operations over the peak rate of its operands' type (float32
+# outside the tensor cores; bf16 on them).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+RFFT_OPS = 2.5 * 4096 * 12  # 5 N log2 N / 2 for one real FFT of N = 4096
 # (kernel, source in csrc/, TPU kernel body it replaces in spleeterrt_tpu/kernels/)
 KERNEL_TABLE = (
     ("stft4096", "stft.cu", "stft_fused.py:183"),
@@ -128,6 +180,7 @@ KERNEL_TABLE = (
     ("masked_istft4096", "istft.cu", "stft_fused.py:318"),
     ("irfft4096", "irfft.cu", "pallas_fft.py:72"),
     ("masked_irfft4096", "irfft.cu", "pallas_fft.py:186"),
+    ("mask_head", "head.cu", "mask_head.py:86"),
 )
 
 
@@ -221,6 +274,13 @@ def vst_config(compute_dtype, overlap: int = 4):
                            num_stems=4, compute_dtype=compute_dtype)
 
 
+def exe_config(num_stems: int, compute_dtype, overlap: int = 4):
+    """The CLI's default config (the reference exe's) for num_stems."""
+    return SeparatorConfig(transform=TransformConfig(overlap=overlap),
+                           bin_limit=EXE_BIN_LIMIT, time_step=EXE_TIME_STEP,
+                           num_stems=num_stems, compute_dtype=compute_dtype)
+
+
 def random_stacked(device):
     """The CLI's --random-weights params (seed SEED), on `device`."""
     gen = torch.Generator().manual_seed(SEED)
@@ -305,14 +365,28 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     ):
         ms = cuda_ms(lambda: fn(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
+        # irfft4096's function is torch.fft.irfft's (no window here).
+        library_ms = (cuda_ms(lambda: torch.fft.irfft(args[0], n=4096))
+                      if name == "irfft4096" else None)
         log(f"[{name}] {shapes} shapes: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
-        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            f"{plain_ms:.4f} ms" + (f", torch.fft.irfft {library_ms:.4f} ms"
+                                    if library_ms is not None else ""))
+        report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **bound_entry([(name, args, {})]),
+                        "library_ms": library_ms}
     del k8_args, k9_args
 
+    # cuDNN's transposed convolutions (dgrad) may sum in another order from
+    # call to call, which moves the plain chain's outputs and so each
+    # error below; its deterministic algorithms make them repeat run to run.
+    # They are far slower, so every time is taken with cuDNN's own choice.
+    torch.backends.cudnn.deterministic = True
     stacked = with_random_epilogues(random_stacked(device))
+    two_stem = two_stem_head_inputs(audio, device)
+    timed = collections.defaultdict(list)  # kernel -> its timed calls
     for dtype in (torch.float32, torch.bfloat16):
-        for label, name, fn, plain, args, kw in unet_calls(stacked, pmag, dtype)[0]:
+        calls = unet_calls(stacked, pmag, dtype)[0]
+        for label, name, fn, plain, args, kw in calls:
             got, ref = fn(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
             err, bound, worst = unet_error(got, ref, dtype, name, args, kw)
@@ -324,8 +398,9 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                 raise AssertionError(f"{label} disagrees with its plain version")
             if dtype != cfg.compute_dtype:
                 continue
-            ms = cuda_ms(lambda: fn(*args, **kw))
-            plain_ms = cuda_ms(lambda: plain(*args, **kw))
+            with cudnn_deterministic(False):  # time what the path runs
+                ms = cuda_ms(lambda: fn(*args, **kw))
+                plain_ms = cuda_ms(lambda: plain(*args, **kw))
             log(f"[{label} {name}] 30 s shapes, {str(dtype)[6:]}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
             entry = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
@@ -333,7 +408,158 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             entry["ms"] += ms  # K3: enc2 + enc3 + enc4, one path's worth
             entry["plain_ms"] += plain_ms
+            timed[name].append((name, args, kw))
+        # K10 on the head's inputs of the same chain, x = [skip1 | up5]
+        # (stems folded, S = 4), and at the 2-stem exe shapes, where the
+        # round-3 route runs it.
+        head_args = calls[-1][4]
+        exe_args = two_stem(dtype)
+        entry = report.setdefault("mask_head", {"max_abs_err": 0.0})
+        for label, args, kw in (
+            ("K10 mask_head, 4-stem VST batch (S = 4)",
+             (torch.cat(head_args[:2], -1).contiguous(), *head_args[2:]),
+             {"act": "elu"}),
+            ("K10 mask_head, 2-stem exe shapes", exe_args, {"act": "relu"}),
+        ):
+            got = mask_head.mask_head(*args, **kw)
+            ref = mask_head.mask_head_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, bound, worst = unet_error(got, ref, dtype, "mask_head", args, kw)
+            log(f"[{label}] x {tuple(args[0].shape)} {str(dtype)[6:]}: max "
+                f"|kernel - plain| = {err:.3e}, bound {bound:.3e} (per pixel; "
+                f"at the largest error / bound); largest error / bound "
+                f"{worst:.3e}")
+            if not worst <= 1:
+                raise AssertionError(f"{label} disagrees with its plain version")
+            if not torch.equal(got, mask_head.mask_head(*args, **kw)):
+                raise AssertionError(f"{label} is not deterministic")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        # One template: K10 on [skip1 | up5] gives K6's masks bit for bit.
+        same = torch.equal(
+            mask_head.mask_head(torch.cat(head_args[:2], -1).contiguous(),
+                                *head_args[2:], act="elu"),
+            tail.head(*head_args, act="elu").flatten(0, 1))
+        log(f"[K10 mask_head] {str(dtype)[6:]}: two runs bit-identical, and "
+            f"bit-identical to K6 on the same 4-stem inputs: {same}")
+        if not same:
+            raise AssertionError("K10 and K6 disagree on the same inputs")
+        del head_args, calls
+        if dtype == cfg.compute_dtype:
+            kw = {"act": "relu"}
+            with cudnn_deterministic(False):
+                entry["ms"] = cuda_ms(lambda: mask_head.mask_head(*exe_args, **kw))
+                entry["plain_ms"] = cuda_ms(
+                    lambda: mask_head.mask_head_plain(*exe_args, **kw))
+            log(f"[K10 mask_head] 2-stem exe shapes, {str(dtype)[6:]}: kernel "
+                f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms")
+            timed["mask_head"].append(("mask_head", exe_args, kw))
+    torch.backends.cudnn.deterministic = False
+    for name, calls in timed.items():
+        report[name].update(bound_entry(calls), library_ms=None)
     return report
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool):
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def two_stem_head_inputs(audio: torch.Tensor, device):
+    """K10's input at the 2-stem exe shapes: dtype -> the head's arguments
+    (x, w6, b6, bn_scale6, bn_shift6, w7, b7), x = up6's input from the
+    canonical trunk (cuDNN, the plain chain) of the CLI's random 2-stem net
+    with random biases and batch norms, over the magnitude of `audio`."""
+    cfg = exe_config(2, torch.float32)
+    net = with_random_epilogues(model.with_stem_axis(
+        cli.load_weights(None, True, SEED, cfg, device)["params"]))
+    padded = transform.pad_offline(audio, cfg.transform).contiguous()
+    _, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+    _, mag = stft_fused.stft4096_plain(
+        padded, transform.analysis_window(4096, device=device), n_comp, n_req,
+        cfg.bin_limit, cfg.time_step)
+    ly6, ly7 = net["up6"], net["up7"]
+    weights6 = (ly6["w"], ly6["b"], ly6["bn_scale"], ly6["bn_shift"], ly7["w"],
+                ly7["b"])
+
+    def args(dtype):
+        x = model.unet_trunk(model.stem_params(net, 0), mag, STEM_MODE_2, dtype)
+        return (x.permute(0, 2, 3, 1).contiguous(), *weights6)
+
+    return args
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def kernel_work(name: str, args, kw) -> tuple[float, float, torch.dtype]:
+    """(bytes, operations, operand dtype) of one kernel call: each input
+    read once, each output written once; operations are multiply-adds x 2
+    (a transposed 5 x 5 stride-2 conv: 6.25 taps per output on average),
+    plus RFFT_OPS per 4096-point transform."""
+    if name == "stft4096":
+        audio, window, n_comp, n_req, bin_limit, _ = args
+        rows = audio.shape[0]
+        out = rows * n_req * (stft_fused.N_BINS * 8 + bin_limit * 4)
+        ops = rows * n_comp * (RFFT_OPS + 4096 + 3 * bin_limit)
+        return nbytes(audio, window) + out, ops, torch.float32
+    if name == "masked_istft4096":
+        spec, masks, out_band, window, n_frames = args
+        s, rows = masks.shape[0], spec.shape[0]
+        read = rows * n_frames * stft_fused.N_BINS * 8 + nbytes(masks, out_band, window)
+        out = s * rows * (n_frames * 1024 + 3072) * 4
+        ops = s * rows * n_frames * (RFFT_OPS + 2 * stft_fused.N_BINS + 2 * 4096)
+        return read + out, ops, torch.float32
+    if name in ("irfft4096", "masked_irfft4096"):
+        spec = args[0]
+        s = args[1].shape[0] if name == "masked_irfft4096" else 1
+        frames = spec.numel() // stft_fused.N_BINS
+        ops = s * frames * (RFFT_OPS + 2 * stft_fused.N_BINS + 4096)
+        return nbytes(*args) + s * frames * 4096 * 4, ops, torch.float32
+    if name == "enc1":
+        mag, w = args[:2]
+        b, _, t, f = mag.shape
+        px = w.shape[0] * b * (t // 2) * (f // 2)
+        dtype = kw["dtype"]
+        out = 2 * px * 16 * torch.finfo(dtype).bits // 8
+        return nbytes(*args) + out, px * 16 * 2 * 25 * 2, dtype
+    if name == "enc_s2":
+        x = args[0]
+        sb, h, wd, c = x.shape
+        px = sb * (h // 2) * (wd // 2)
+        out = 2 * px * 2 * c * x.element_size()
+        return nbytes(*args) + out, px * 2 * c * c * 25 * 2, x.dtype
+    if name in ("up4", "up5"):
+        skip = args[0]
+        sb, h, wd, c = skip.shape
+        px = sb * 4 * h * wd
+        out = px * (c // 2) * skip.element_size()
+        return nbytes(*args) + out, px * (c // 2) * 2 * c * 6.25 * 2, skip.dtype
+    if name in ("head", "mask_head"):
+        src = args[0]
+        sb, h, wd, _ = src.shape
+        px = sb * 4 * h * wd  # mask pixels; 2 float32 channels each
+        return nbytes(*args) + px * 2 * 4, px * (32 * 6.25 + 2 * 16) * 2, src.dtype
+    raise ValueError(name)
+
+
+def bound_entry(calls) -> dict:
+    """The least time the card could take for the calls' work (ms), and
+    whether bytes or operations set it."""
+    bytes_ms = ops_ms = 0.0
+    for name, args, kw in calls:
+        nb, ops, dtype = kernel_work(name, args, kw)
+        bytes_ms += nb / HBM_BYTES_PER_S * 1e3
+        ops_ms += ops / PEAK_OPS_PER_S[dtype] * 1e3
+    if bytes_ms >= ops_ms:
+        return {"bound_ms": bytes_ms, "bound_by": "bytes"}
+    return {"bound_ms": ops_ms, "bound_by": "operations"}
 
 
 def check_inverse(label: str, fn, plain, args) -> float:
@@ -388,7 +614,8 @@ def overlap2_k9_args(audio: torch.Tensor, device) -> tuple:
             BIN_LIMIT, transform.synthesis_window(tcfg, device=device))
 
 
-def unet_calls(stacked, mag, dtype) -> tuple[list[tuple], tuple]:
+def unet_calls(stacked, mag, dtype, stem_mode=STEM_MODE_4
+               ) -> tuple[list[tuple], tuple]:
     """The packed U-Net's kernel calls at `mag`'s shapes in dataflow order,
     (label, counter, wrapper, plain, args, kwargs), each on the outputs of
     the plain chain before it, and the mid trunk's arguments."""
@@ -397,20 +624,21 @@ def unet_calls(stacked, mag, dtype) -> tuple[list[tuple], tuple]:
         return ly["w"], ly["b"], ly["bn_scale"], ly["bn_shift"]
 
     calls = []
-    kw = {"act": "elu", "dtype": dtype}
+    kw = {"act": model.encoder_act_name(stem_mode), "dtype": dtype}
     args = (mag, *layer("down1"))
     calls.append(("K2 enc1", "enc1", encoder.enc1, encoder.enc1_plain, args, kw))
     skip, x = encoder.enc1_plain(*args, **kw)
     skips = [skip]
-    kw = {"act": "elu"}
+    kw = {"act": model.encoder_act_name(stem_mode)}
     for i in (2, 3, 4):
         args = (x, *layer(f"down{i}"))
         calls.append((f"K3 enc{i}", "enc_s2", encoder.enc_s2,
                       encoder.enc_s2_plain, args, kw))
         skip, x = encoder.enc_s2_plain(*args, **kw)
         skips.append(skip)
-    trunk_args = (stacked, x, skips[3], STEM_MODE_4, dtype)
+    trunk_args = (stacked, x, skips[3], stem_mode, dtype)
     x = model.mid_trunk(*trunk_args)
+    kw = {"act": model.decoder_act_name(stem_mode)}
     for i in (4, 5):
         args = (skips[6 - i], x, *layer(f"up{i}"))
         calls.append((f"K{i} up{i}", f"up{i}", tail.up_shallow,
@@ -425,9 +653,11 @@ def unet_error(got, ref, dtype, name, args, kw) -> tuple[float, float, float]:
     """(max |kernel - plain|, its bound, the largest error / bound) over a
     wrapper's outputs; the head's bound is per pixel, and the one reported
     is that of the pixel with the largest error / bound."""
-    if name == "head":
+    if name in ("head", "mask_head"):
+        bound_fn = (tail.head_error_bound if name == "head"
+                    else mask_head.mask_head_error_bound)
         diff = (got - ref).abs().flatten()
-        bound = tail.head_error_bound(*args, **kw).flatten()
+        bound = bound_fn(*args, **kw).flatten()
         i = (diff / bound).argmax()
         worst = (diff[i] / bound[i]).item()
         return diff.max().item(), bound[i].item(), worst
@@ -831,6 +1061,261 @@ def stream_stages(stacked, state, block, cfg) -> None:
     del masked, frames
 
 
+# ---------------------------------------------------------------------------
+# 2, 3 and 5 stems, the round-3 route
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_graph():
+    """The offline graphs with no hand kernel: every wrapper they call
+    replaced by its plain version (torch.fft) and the U-Net sent down its
+    canonical route (cuDNN), as phase 4's plain path is for 4 stems."""
+    patches = [
+        (stft_fused, "stft4096", stft_fused.stft4096_plain),
+        (stft_fused, "masked_istft4096", stft_fused.masked_istft4096_plain),
+        (pallas_fft, "irfft4096", pallas_fft.irfft4096_plain),
+        (pallas_fft, "masked_irfft4096", pallas_fft.masked_irfft4096_plain),
+        (model, "FORCE_PACKED_UNET", False),
+        (model, "FORCE_PALLAS_HEAD", False),
+        (model, "FORCE_PALLAS_ENCODER", False),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    kernels.reset_launch_counts()
+    try:
+        for mod, name, value in patches:
+            setattr(mod, name, value)
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the plain graph launched {kernels.launch_counts()}")
+
+
+@contextlib.contextmanager
+def packed_unet_off():
+    """The standard net sent down the round-3 route."""
+    model.FORCE_PACKED_UNET = False
+    try:
+        yield
+    finally:
+        model.FORCE_PACKED_UNET = None
+
+
+def narrow_net(gen: torch.Generator):
+    """init_params with NARROW_TRUNK in place of the standard deep trunk:
+    he-normal weights, zero biases, unit batch norms."""
+    p = model.init_params(gen)
+    for name, (cin, cout) in NARROW_TRUNK.items():
+        shape = (cout, cin, 5, 5) if name.startswith("down") else (cin, cout, 5, 5)
+        p[name] = {"w": torch.randn(shape, generator=gen) * math.sqrt(2 / (25 * cin)),
+                   "b": torch.zeros(cout)}
+        if name != "down6":
+            p[name].update(bn_scale=torch.ones(cout), bn_shift=torch.zeros(cout))
+    return p
+
+
+def write_weight_files(workdir: str) -> dict[str, str]:
+    """The quantized two-subnet file (subnet 0 the 4-stem-family net,
+    subnet 1 the 2-stem net) and the narrow-trunk npz, from seeded nets
+    through the port's writers."""
+    gen = torch.Generator().manual_seed(SEED)
+    halves = [weights.encode_fp16(np.frombuffer(
+        weights.params_to_blob(model.init_params(gen)), "<f4")) for _ in range(2)]
+    quantized = os.path.join(workdir, "model_fp16.bin")
+    with open(quantized, "wb") as f:
+        f.write(np.concatenate(halves).astype("<u2").tobytes())
+    narrow = os.path.join(workdir, "narrow.npz")
+    weights.save_npz(narrow_net(gen), narrow)
+    return {"quantized": quantized, "narrow": narrow}
+
+
+def run_stems_cli(workdir: str, song: str, tag: str, n_stems: int, wargs: list,
+                  device) -> tuple[dict, dict]:
+    """The CLI at its defaults (the exe config, bf16) with --stems n_stems;
+    returns (its launch counts, {stem: samples read back})."""
+    out_dir = os.path.join(workdir, tag)
+    kernels.reset_launch_counts()
+    rc = cli.main([song, "--stems", str(n_stems), *wargs, "--output-dir",
+                   out_dir, "--device", str(device)])
+    launches = kernels.launch_counts()
+    log(f"[{tag}] cli rc {rc}, launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: CLI returned {rc}")
+    base = os.path.splitext(os.path.basename(song))[0]
+    stems = {}
+    for stem in exe_config(n_stems, torch.float32).stem_names:
+        y = audio_io.read_wav(os.path.join(
+            out_dir, f"{base}_{cli.STEM_FILENAMES[stem]}.wav")).samples
+        if not np.all(np.isfinite(y)):
+            raise AssertionError(f"{tag} {stem}: non-finite samples")
+        stems[stem] = y
+    return launches, stems
+
+
+def check_stem_quality(tag: str, x: np.ndarray, cli_stems: dict, nets: dict,
+                       n_stems: int, device) -> None:
+    """Per-stem SNR of the CLI's bf16 stems and of the fp32 kernel graph
+    against the plain fp32 graph on the same nets; stems as long as x."""
+    cfg32 = exe_config(n_stems, torch.float32)
+    kern = separate.separate(x, cfg=cfg32, device=device, **nets)
+    with plain_graph():
+        plain = separate.separate(x, cfg=cfg32, device=device, **nets)
+    for stem, ref in plain.items():
+        ref = ref.cpu().numpy()
+        if cli_stems[stem].shape != x.shape:
+            raise AssertionError(f"{tag} {stem}: shape {cli_stems[stem].shape}")
+        bf16 = snr_db(cli_stems[stem], ref)
+        fp32 = snr_db(kern[stem].cpu().numpy(), ref)
+        log(f"[{tag} quality] {stem}: bf16 CLI vs fp32 plain {bf16:.2f} dB "
+            f"(>= {SNR_BF16_MIN_DB}), fp32 kernels vs fp32 plain {fp32:.2f} dB "
+            f"(>= {SNR_FP32_MIN_DB})")
+        if not (bf16 >= SNR_BF16_MIN_DB and fp32 >= SNR_FP32_MIN_DB):
+            raise AssertionError(f"{tag} {stem}: SNR below its bound")
+
+
+def phase_stems_cli(workdir: str, files: dict, device) -> None:
+    """2 stems (defaults, random weights), 3 stems (the quantized file) and
+    5 stems (random weights) through the CLI on the 30 s WAV."""
+    x = synthetic_audio(SMOKE_SECONDS)
+    song = os.path.join(workdir, "stems.wav")
+    audio_io.write_wav(song, x)
+    for n_stems, wargs, per_run in (
+        (2, ["--random-weights", "--seed", str(SEED)], MAIN_PATH_LAUNCHES),
+        (3, ["--weights", files["quantized"]], THREE_STEM_LAUNCHES),
+        (5, ["--random-weights", "--seed", str(SEED)], MAIN_PATH_LAUNCHES),
+    ):
+        tag = f"{n_stems} stems"
+        launches, stems = run_stems_cli(workdir, song, tag, n_stems, wargs, device)
+        if launches != expected_launches(per_run):
+            raise AssertionError(f"{tag}: launches {launches}, expected {per_run}")
+        if n_stems == 2:
+            err = np.abs(stems["vocals"] + stems["accompaniment"] - x).max()
+            log(f"[{tag}] conservation max |vocals + accompaniment - input| = "
+                f"{err:.3e} (<= {CONSERVATION_MAX})")
+            if not err <= CONSERVATION_MAX:
+                raise AssertionError("2 stems: vocals + accompaniment != input")
+        cfg = exe_config(n_stems, torch.bfloat16)
+        src = wargs[1] if wargs[0] == "--weights" else None
+        nets = cli.load_weights(src, src is None, SEED, cfg, device)
+        check_stem_quality(tag, x, stems, nets, n_stems, device)
+
+
+def phase_round3(workdir: str, files: dict, device) -> dict:
+    """The 2-stem CLI on the round-3 route: the narrow-trunk npz, then the
+    standard net with FORCE_PACKED_UNET = False. Returns the first run's
+    launch counts."""
+    x = synthetic_audio(SMOKE_SECONDS)
+    song = os.path.join(workdir, "round3.wav")
+    audio_io.write_wav(song, x)
+    cfg = exe_config(2, torch.bfloat16)
+    first = None
+    for tag, wargs, switch in (
+        ("round 3, narrow npz", ["--weights", files["narrow"]],
+         contextlib.nullcontext),
+        ("round 3, FORCE_PACKED_UNET = False",
+         ["--random-weights", "--seed", str(SEED)], packed_unet_off),
+    ):
+        src = wargs[1] if wargs[0] == "--weights" else None
+        nets = cli.load_weights(src, src is None, SEED, cfg, device)
+        with switch():
+            launches, stems = run_stems_cli(workdir, song, tag, 2, wargs, device)
+            if launches != expected_launches(ROUND3_LAUNCHES):
+                raise AssertionError(f"{tag}: launches {launches}, expected "
+                                     f"{ROUND3_LAUNCHES}")
+            check_library_convs_round3(tag, x, nets["params"], cfg, device)
+            check_stem_quality(tag, x, stems, nets, 2, device)
+        first = first or launches
+    return first
+
+
+def check_library_convs_round3(tag, x, params, cfg, device) -> None:
+    """The library convolutions of a round-3 2-stem separation are those of
+    trunk_tail (enc4..up5) alone, on inputs of the same shapes and layouts
+    as the K3 outputs it reads, and no more."""
+    padded = transform.pad_offline(torch.from_numpy(x).to(device),
+                                   cfg.transform).contiguous()
+    graph = library_conv_kernels(lambda: separate.separate_2stem(params, padded, cfg))
+    _, _, n_req = frame_counts(padded.shape[-1], cfg)
+    nt, t, f = n_req // cfg.time_step, cfg.time_step, cfg.bin_limit
+    nchw = lambda c, d: torch.zeros((nt, t // d, f // d, c), dtype=cfg.compute_dtype,
+                                    device=device).permute(0, 3, 1, 2)
+    skips = [nchw(16, 2), nchw(32, 4), nchw(64, 8)]
+    tail_only = library_conv_kernels(lambda: model.trunk_tail(
+        params, nchw(64, 8), skips, STEM_MODE_2, cfg.compute_dtype))
+    log(f"[{tag}] library convolution launches: graph {sum(graph.values())}, "
+        f"trunk_tail (enc4..up5) alone {sum(tail_only.values())}")
+    if not tail_only or graph != tail_only:
+        raise AssertionError(f"{tag}: library convolutions outside enc4..up5: "
+                             f"graph {dict(graph)}, trunk_tail {dict(tail_only)}")
+
+
+def phase_timing_2stem(device) -> None:
+    """separate_2stem at 300 s at the exe config (bf16, the CLI's random
+    2-stem net) on the packed and the round-3 routes, their U-Net and head
+    stages, and K10 against the canonical head at HEAD_BATCH_LIMIT images."""
+    cfg = exe_config(2, torch.bfloat16)
+    params = cli.load_weights(None, True, SEED, cfg, device)["params"]
+    seconds = BENCH_SECONDS[-1]
+    rng = np.random.default_rng(SEED)
+    audio = torch.as_tensor(rng.standard_normal((2, int(seconds * SR))) * 0.3,
+                            dtype=torch.float32, device=device)
+    padded = transform.pad_offline(audio, cfg.transform).contiguous()
+    run = lambda: separate.separate_2stem(params, padded, cfg)
+    routes = {"packed": contextlib.nullcontext, "round 3": packed_unet_off}
+    for switch in routes.values():
+        with switch():
+            run()  # warm up
+    times = {name: float("inf") for name in routes}
+    for _ in range(3):  # the routes take turns; best of three rounds of three
+        for name, switch in routes.items():
+            with switch():
+                times[name] = min(times[name], cuda_ms(run, iters=3, warmup=0))
+    for name, ms in times.items():
+        log(f"[2-stem timing] {seconds:.0f} s, {name} route: {ms:.3f} ms per "
+            f"separate_2stem, {seconds / (ms / 1e3):.2f}x realtime")
+
+    _, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+    _, mag = stft_fused.stft4096(
+        padded, transform.analysis_window(4096, device=device), n_comp, n_req,
+        cfg.bin_limit, cfg.time_step)
+    one = model.with_stem_axis(params)
+    masks = lambda: separate.single_net_masks(params, mag, cfg, STEM_MODE_2)
+    stages = {"U-Net, packed (K2-K6 + mid trunk)": cuda_ms(masks, 5, 1)}
+    with packed_unet_off():
+        stages["U-Net, round 3 (K2, K3 x2, torch enc4..up5, K10)"] = cuda_ms(
+            masks, 5, 1)
+    stages["U-Net, canonical (cuDNN)"] = cuda_ms(
+        lambda: model.multi_stem_masks_canonical(one, mag, STEM_MODE_2,
+                                                 cfg.compute_dtype), 5, 1)
+    calls, _ = unet_calls(one, mag, cfg.compute_dtype, STEM_MODE_2)
+    _, _, _, _, k6_args, kw = calls[-1]
+    stages["K6 head"] = cuda_ms(lambda: tail.head(*k6_args, **kw), 10)
+    stages["K6 plain"] = cuda_ms(lambda: tail.head_plain(*k6_args, **kw), 5, 1)
+    del calls, k6_args
+    x = model.multi_stem_trunk(one, mag, STEM_MODE_2, cfg.compute_dtype)
+    ly6, ly7 = one["up6"], one["up7"]
+    w = (ly6["w"], ly6["b"], ly6["bn_scale"], ly6["bn_shift"], ly7["w"], ly7["b"])
+    stages["K10 mask_head"] = cuda_ms(lambda: mask_head.mask_head(x, *w, **kw), 10)
+    stages["K10 plain"] = cuda_ms(
+        lambda: mask_head.mask_head_plain(x, *w, **kw), 5, 1)
+    reps = -(-HEAD_BATCH_LIMIT // x.shape[0])
+    x64 = torch.cat([x] * reps)[:HEAD_BATCH_LIMIT].contiguous()
+    stages[f"K10 mask_head, {HEAD_BATCH_LIMIT} images"] = cuda_ms(
+        lambda: mask_head.mask_head(x64, *w, **kw), 10)
+    stages[f"canonical head (cuDNN), {HEAD_BATCH_LIMIT} images"] = cuda_ms(
+        lambda: model.canonical_head(params, x64.permute(0, 3, 1, 2),
+                                     STEM_MODE_2, cfg.compute_dtype), 10)
+    for name, ms in stages.items():
+        log(f"[2-stem timing] {seconds:.0f} s stage {name}: {ms:.3f} ms")
+    del x, x64
+    for name, switch in routes.items():
+        with switch():
+            profile_device(f"one {seconds:.0f} s 2-stem separation, {name} "
+                           f"route", run)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -846,15 +1331,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         cli_stems, launches = phase_main_path(workdir, device)
         stream_launches = phase_stream_cli(workdir, device)
+        files = write_weight_files(workdir)
+        phase_stems_cli(workdir, files, device)
+        round3_launches = phase_round3(workdir, files, device)
     phase_quality(cli_stems, device)
     phase_stream_quality(device)
     overlap2_launches = phase_overlap2(device)
     phase_timing(device)
     phase_stream_timing(device)
+    phase_timing_2stem(device)
     # Each kernel's launches on the path that runs it: the offline CLI for
-    # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9.
+    # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
+    # 2-stem CLI's round-3 route for K10.
     launches.update(irfft4096=stream_launches["irfft4096"],
-                    masked_irfft4096=overlap2_launches["masked_irfft4096"])
+                    masked_irfft4096=overlap2_launches["masked_irfft4096"],
+                    mask_head=round3_launches["mask_head"])
     report = [
         {"name": name, "route": "cuda",
          "source": f"spleeterrt_tpu_torch/csrc/{src}",

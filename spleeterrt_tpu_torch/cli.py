@@ -9,7 +9,8 @@ switch to the CPU.
 
 Stem file naming matches the reference (`<name>_Vocal.wav`,
 `<name>_Accompaniment.wav`, `<name>_Drum.wav`, Executable/main.c:812-965)
-plus `<name>_Bass.wav` for the 4-stem graph.
+plus `<name>_Bass.wav`, `<name>_Piano.wav` and `<name>_Other.wav` for the 4-
+and 5-stem graphs.
 """
 
 from __future__ import annotations
@@ -38,14 +39,15 @@ def build_parser() -> argparse.ArgumentParser:
         description="Spleeter source separation in PyTorch (offline CLI).",
     )
     p.add_argument("audio", help="input audio file (WAV)")
-    p.add_argument("--stems", type=int, default=2, choices=(2, 3, 4, 5),
-                   help="stem count; only 4 is available so far")
+    p.add_argument("--stems", type=int, default=2, choices=(2, 3, 4, 5))
     p.add_argument("--time-step", type=int, default=512,
                    help="spectrogram tile height in frames (default 512)")
     p.add_argument("--bin-limit", type=int, default=1024,
                    help="frequency bins seen by the U-Net (default 1024)")
     p.add_argument("--weights", default=None,
-                   help="a directory with the four VST .dat blobs (4 stems)")
+                   help="weights source: quantized 2-subnet model file "
+                        "(2/3 stems), a directory with the four VST .dat "
+                        "blobs (4 stems), or an npz checkpoint (2 stems)")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights (smoke/benchmark; model.7z is not "
                         "distributable)")
@@ -89,28 +91,47 @@ def open_device(name: str) -> torch.device:
     return dev
 
 
-def load_weights(weights_dir, random_weights: bool, seed: int, cfg, device):
-    """Stacked (drums, bass, accompaniment, vocals) params on `device`: the
-    VST blobs in `weights_dir`, or random ones drawn from `seed`."""
+def load_weights(src, random_weights: bool, seed: int, cfg, device) -> dict:
+    """The nets for cfg.num_stems on `device`, as keyword arguments of
+    separate.separate, by the reference CLI's rules (its `_load_weights`):
+    random nets drawn from `seed` (one per stem; 3 stems take the first as
+    the 4-stem-family net and the second as the 2-stem net), the four VST
+    blobs in a directory (4 stems), an npz checkpoint in the reference's
+    layout (2 stems), or the exe's quantized two-subnet file (subnet 0 is
+    the 4-stem-family net, subnet 1 the 2-stem net; 2 or 3 stems)."""
     from spleeterrt_tpu_torch.core import model, weights
 
-    if random_weights or weights_dir is None:
+    n = cfg.num_stems
+    if random_weights or src is None:
         if not random_weights:
             print("no --weights given; using random weights")
         gen = torch.Generator().manual_seed(seed)
-        ps = [model.init_params(gen) for _ in range(cfg.num_stems)]
-    elif os.path.isdir(weights_dir):
+        ps = [model.init_params(gen) for _ in range(n)]
+    elif os.path.isdir(src):
+        if n != 4:
+            raise SystemExit("--weights dir is only for 4-stem (.dat blobs)")
         ps = [
             weights.load_coeff_file(
-                os.path.join(weights_dir, weights.VST_BLOB_FILENAMES[stem])
+                os.path.join(src, weights.VST_BLOB_FILENAMES[stem])
             )
             for stem in cfg.stem_names
         ]
-    else:
-        raise SystemExit(
-            "--weights for 4 stems is a directory with the four VST .dat blobs"
-        )
-    return weights.params_to(weights.stack_params(ps), device)
+    elif src.endswith(".npz"):
+        if n != 2:
+            raise SystemExit("single npz supports --stems 2 only")
+        ps = [weights.load_npz(src)]
+    else:  # the exe's quantized model: raw fp16, two subnets
+        if n not in (2, 3):
+            raise SystemExit("quantized model supports 2/3 stems")
+        with open(src, "rb") as f:
+            p4, p2 = weights.load_quantized_model(f.read())
+        ps = [p2] if n == 2 else [p4, p2]
+    ps = [weights.params_to(p, device) for p in ps]
+    if n == 2:
+        return {"params": ps[0]}
+    if n == 3:
+        return {"params4": ps[0], "params2": ps[1]}
+    return {"stacked_params": weights.stack_params(ps)}
 
 
 def main(argv=None) -> int:
@@ -152,8 +173,8 @@ def main(argv=None) -> int:
     print(f"Audio load + resample: {time.perf_counter() - t0:.3f} s "
           f"({samples.shape[1] / 44100.0:.1f} s of audio)")
 
-    stacked = load_weights(args.weights, args.random_weights, args.seed,
-                           cfg, device)
+    nets = load_weights(args.weights, args.random_weights, args.seed, cfg,
+                        device)
 
     prof = None
     if args.profile:
@@ -163,9 +184,7 @@ def main(argv=None) -> int:
         prof = torch.profiler.profile(activities=acts)
         prof.start()
     t0 = time.perf_counter()
-    stems = separate.separate(
-        samples, stacked_params=stacked, cfg=cfg, device=device
-    )
+    stems = separate.separate(samples, cfg=cfg, device=device, **nets)
     stems = {k: v.cpu().numpy() for k, v in stems.items()}
     dt = time.perf_counter() - t0
     if prof is not None:

@@ -110,7 +110,8 @@ def main(argv=None) -> int:
         compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
     )
     device = cli.open_device(args.device)
-    stacked = cli.load_weights(args.weights, args.random_weights, 0, cfg, device)
+    stacked = cli.load_weights(args.weights, args.random_weights, 0, cfg,
+                               device)["stacked_params"]
 
     latency = (2 * cfg.time_step + 1) * stream.HOP
     print(f"engine latency: {latency} samples "

@@ -25,14 +25,23 @@ uses ELU everywhere with inputs below -15 clamped to -1.
 Public functions keep the reference package's NHWC (batch, time, bins, 2)
 layout; the separation pipeline calls the NCHW forms directly.
 
-Two routes, as in the reference package (spleeterrt_tpu/core/model.py):
-the packed U-Net (`packed_unet_masks`: the hand kernels K2-K6 of
-kernels/encoder.py and kernels/tail.py around a plain-torch mid trunk)
-wherever `use_packed_unet` holds, which is the standard architecture at
-tile shapes the kernels take with the exact sigmoid; otherwise the
-canonical per-stem `unet_forward_nchw`. The gate looks at shapes only, not
-at the device: on CPU tensors the packed route runs the kernels' plain
-versions, on CUDA tensors the kernels.
+Three routes, tried in the reference package's order
+(spleeterrt_tpu/core/model.py::multi_stem_forward):
+
+1. the packed U-Net (`packed_unet_masks`: the hand kernels K2-K6 of
+   kernels/encoder.py and kernels/tail.py around a plain-torch mid trunk)
+   wherever `use_packed_unet` holds: the standard architecture at tile
+   shapes the kernels take, with the exact sigmoid;
+2. the round-3 route wherever `use_pallas_head` or `use_pallas_encoder`
+   holds: K2 enc1 and K3 enc2, enc3 (`multi_stem_trunk`), enc4..up5 in
+   plain torch (`trunk_tail`, any channel ladder), and the head K10
+   (`pallas_head`, kernels/mask_head.py) or the canonical head. A net
+   whose deep trunk is not the standard one, or the standard net with
+   FORCE_PACKED_UNET = False, goes this way;
+3. the canonical per-stem `unet_forward_nchw`.
+
+The gates look at shapes only, not at the device: on CPU tensors a route
+runs the kernels' plain versions, on CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -53,6 +62,23 @@ DECODER_CHANNELS = ((512, 256), (512, 128), (256, 64), (128, 32), (64, 16), (32,
 FINAL_CHANNELS = (1, 2)
 
 Params = dict[str, dict[str, torch.Tensor]]
+
+# The reference's route switches (spleeterrt_tpu/core/model.py:164-173).
+# None lets the gate decide from the shapes (the reference also asks its
+# backend; the port runs a route's plain versions on CPU tensors instead),
+# True takes the route wherever the shapes allow it, whatever the batch,
+# False never takes it. FORCE_PACKED_UNET = False sends the standard net
+# down the round-3 route.
+FORCE_PACKED_UNET: bool | None = None
+FORCE_PALLAS_HEAD: bool | None = None
+FORCE_PALLAS_ENCODER: bool | None = None
+
+# Above this many (stem * tile) images the round-3 head and encoder give
+# way to the canonical layers: the reference's thresholds (its model.py
+# :188 and :317, measured on a TPU and not retuned), kept so that the same
+# inputs take the same route in both packages.
+PALLAS_HEAD_MAX_BATCH = 64
+PALLAS_ENCODER_MAX_BATCH = 64
 
 
 def init_params(
@@ -149,6 +175,76 @@ def conv_dilated_final(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor
     return F.conv2d(x, w, b, padding=3, dilation=2)
 
 
+def _encoder(params: Params, x, layers, skips: list, stem_mode: int, cast):
+    """Encoder layers `layers` from x; each pre-activation conv (the
+    decoder's skip) is appended to `skips`. Returns the last activation, or
+    down6's output, which is bias only (spleeter.c:231-238)."""
+    for i in layers:
+        ly = params[f"down{i}"]
+        conv = conv_same(x, cast(ly["w"]), cast(ly["b"]))
+        if i == 6:
+            return conv
+        skips.append(conv)
+        x = act_encoder(cast(ly["bn_scale"])[:, None, None] * conv
+                        + cast(ly["bn_shift"])[:, None, None], stem_mode)
+    return x
+
+
+def _decoder(ly, x: torch.Tensor, stem_mode: int, cast) -> torch.Tensor:
+    """One decoder layer: bn_scale * act(tconv(x) + b) + bn_shift, the
+    activation BEFORE batch norm (spleeter.c:239-288)."""
+    y = tconv_same(x, cast(ly["w"]), cast(ly["b"]))
+    return cast(ly["bn_scale"])[:, None, None] * act_decoder(y, stem_mode) + cast(
+        ly["bn_shift"])[:, None, None]
+
+
+def trunk_tail(
+    params: Params,
+    x: torch.Tensor,  # enc3's activation (B, C3, T/8, F/8)
+    skips3: list[torch.Tensor],  # the pre-activation enc1..enc3 convs
+    stem_mode: int,
+    compute_dtype,
+) -> torch.Tensor:
+    """enc4..enc6 + up1..up5 of one net -> up6's input (B, C, T/2, F/2) =
+    cat[enc1 skip, up5 out] (the reference's `_trunk_tail`), for whatever
+    channel ladder the weights give."""
+    cast = lambda a: a.to(compute_dtype)
+    skips = list(skips3)
+    x = _encoder(params, x, range(4, 7), skips, stem_mode, cast)
+    for i in range(1, 6):
+        # concat [skip, upsampled]; skips are pre-BN/act conv outputs.
+        y = _decoder(params[f"up{i}"], x, stem_mode, cast)
+        x = torch.cat([skips[5 - i], y], dim=1)
+    return x
+
+
+def unet_trunk(
+    params: Params, magnitude: torch.Tensor, stem_mode: int, compute_dtype
+) -> torch.Tensor:
+    """Canonical enc1..enc3 + `trunk_tail`: (B, 2, T, F) -> (B, C, T/2, F/2)."""
+    cast = lambda a: a.to(compute_dtype)
+    skips: list[torch.Tensor] = []
+    x = _encoder(params, cast(magnitude), range(1, 4), skips, stem_mode, cast)
+    return trunk_tail(params, x, skips, stem_mode, compute_dtype)
+
+
+def canonical_head(
+    params: Params, x: torch.Tensor, stem_mode: int, compute_dtype,
+    sigmoid: str = "exact",
+) -> torch.Tensor:
+    """up6 + up7 + sigmoid in plain torch: up6's input (B, C, T/2, F/2) ->
+    fp32 mask (B, 2, T, F). Only the final logits are promoted to fp32."""
+    cast = lambda a: a.to(compute_dtype)
+    y = _decoder(params["up6"], x, stem_mode, cast)
+    ly7 = params["up7"]
+    logits = conv_dilated_final(y, cast(ly7["w"])).float() + ly7["b"].float()[
+        :, None, None
+    ]
+    if sigmoid == "lut":
+        return fast_sigmoid(logits)
+    return torch.sigmoid(logits)
+
+
 def unet_forward_nchw(
     params: Params,
     magnitude: torch.Tensor,  # (B, 2, T, F)
@@ -156,42 +252,15 @@ def unet_forward_nchw(
     compute_dtype=torch.float32,
     sigmoid: str = "exact",
 ) -> torch.Tensor:
-    """Magnitude (B, 2, T, F) -> fp32 soft mask (B, 2, T, F) in [0, 1].
+    """The canonical net: magnitude (B, 2, T, F) -> fp32 soft mask (B, 2,
+    T, F) in [0, 1], everything in `compute_dtype` but the final logits."""
+    x = unet_trunk(params, magnitude, stem_mode, compute_dtype)
+    return canonical_head(params, x, stem_mode, compute_dtype, sigmoid)
 
-    Everything runs in `compute_dtype`; only the final logits are promoted
-    to fp32 for the sigmoid.
-    """
-    cast = lambda a: a.to(compute_dtype)
 
-    def chan(v):  # per-channel vector, broadcast over (H, W)
-        return cast(v)[:, None, None]
-
-    x = cast(magnitude)
-    skips = []
-    for i in range(1, 7):
-        ly = params[f"down{i}"]
-        conv = conv_same(x, cast(ly["w"]), cast(ly["b"]))
-        if i < 6:
-            skips.append(conv)
-            x = act_encoder(
-                chan(ly["bn_scale"]) * conv + chan(ly["bn_shift"]), stem_mode
-            )
-        else:
-            x = conv  # bottleneck: bias only (spleeter.c:231-238)
-    for i in range(1, 7):
-        ly = params[f"up{i}"]
-        y = tconv_same(x, cast(ly["w"]), cast(ly["b"]))
-        x = chan(ly["bn_scale"]) * act_decoder(y, stem_mode) + chan(ly["bn_shift"])
-        if i < 6:
-            # concat [skip, upsampled]; skips are pre-BN/act conv outputs.
-            x = torch.cat([skips[5 - i], x], dim=1)
-    ly = params["up7"]
-    logits = conv_dilated_final(x, cast(ly["w"])).float() + ly["b"].float()[
-        :, None, None
-    ]
-    if sigmoid == "lut":
-        return fast_sigmoid(logits)
-    return torch.sigmoid(logits)
+def with_stem_axis(params: Params) -> Params:
+    """One net as a stack of one (a leading stem axis of size 1; views)."""
+    return {ln: {fn: v[None] for fn, v in ly.items()} for ln, ly in params.items()}
 
 
 def unet_forward(
@@ -201,13 +270,15 @@ def unet_forward(
     compute_dtype=torch.float32,
     sigmoid: str = "exact",
 ) -> torch.Tensor:
-    """Magnitude (batch, T, F, 2) or (T, F, 2) -> mask of the same shape.
+    """Magnitude (batch, T, F, 2) or (T, F, 2) -> mask of the same shape,
+    routed as :func:`multi_stem_masks` routes one stem.
 
     T and F must be divisible by 64 (six stride-2 halvings)."""
     x = magnitude if magnitude.ndim == 4 else magnitude[None]
-    out = unet_forward_nchw(
-        params, x.permute(0, 3, 1, 2), stem_mode, compute_dtype, sigmoid
-    ).permute(0, 2, 3, 1)
+    out = multi_stem_masks(
+        with_stem_axis(params), x.permute(0, 3, 1, 2).contiguous(), stem_mode,
+        compute_dtype, sigmoid,
+    )[0].permute(0, 2, 3, 1)
     return out if magnitude.ndim == 4 else out[0]
 
 
@@ -243,18 +314,65 @@ def use_packed_unet(
     magnitude tiles (B, 2, T, F) with T and F positive multiples of 64.
     (The reference's conditions, encoder.supports4, T % 64, F % 64 and the
     head's 32-row tiling of T/2 and 16-column groups of F/2, reduce to
-    that.)"""
+    that.) FORCE_PACKED_UNET = False turns it off."""
     if not all(k in stacked_params for k in PACKED_WEIGHT_SHAPES):
         return False
     _, c, t, f = magnitude.shape
-    return (
+    ok = (
         sigmoid == "exact"
-        and all(
-            tuple(stacked_params[k]["w"].shape[-4:]) == shape
-            for k, shape in PACKED_WEIGHT_SHAPES.items()
-        )
+        and _shapes_are(stacked_params, PACKED_WEIGHT_SHAPES)
         and c == 2 and t >= 64 and f >= 64 and t % 64 == 0 and f % 64 == 0
     )
+    return ok if FORCE_PACKED_UNET is None else FORCE_PACKED_UNET and ok
+
+
+def _shapes_are(stacked_params: Params, shapes: dict) -> bool:
+    return all(
+        tuple(stacked_params[k]["w"].shape[-4:]) == shapes[k] for k in shapes
+    )
+
+
+def _batch_gate(ok: bool, force: bool | None, n_images: int, limit: int) -> bool:
+    if force is not None:
+        return force and ok
+    return ok and n_images <= limit
+
+
+def use_pallas_head(
+    stacked_params: Params, magnitude: torch.Tensor, sigmoid: str
+) -> bool:
+    """The reference's `_use_pallas_head` without its backend check: the
+    standard up6/up7, the exact sigmoid, NCHW tiles (B, 2, T, F) with T/2 a
+    multiple of 32 and F/2 of 16, and at most PALLAS_HEAD_MAX_BATCH stem *
+    tile images (FORCE_PALLAS_HEAD = True lifts that limit, False turns the
+    gate off)."""
+    _, _, t, f = magnitude.shape
+    ok = (
+        sigmoid == "exact"
+        and _shapes_are(stacked_params, {k: PACKED_WEIGHT_SHAPES[k]
+                                         for k in ("up6", "up7")})
+        and (t // 2) % 32 == 0 and (f // 2) % 16 == 0
+    )
+    return _batch_gate(ok, FORCE_PALLAS_HEAD,
+                       num_stems(stacked_params) * magnitude.shape[0],
+                       PALLAS_HEAD_MAX_BATCH)
+
+
+def use_pallas_encoder(stacked_params: Params, magnitude: torch.Tensor) -> bool:
+    """The reference's `_use_pallas_encoder` without its backend check: the
+    standard enc1..enc3 (2 -> 16 -> 32 -> 64), NCHW tiles (B, 2, T, F) with
+    T a multiple of 8 (>= 16) and F of 32 (>= 32), and at most
+    PALLAS_ENCODER_MAX_BATCH stem * tile images (FORCE_PALLAS_ENCODER as
+    FORCE_PALLAS_HEAD)."""
+    _, c, t, f = magnitude.shape
+    ok = (
+        _shapes_are(stacked_params, {k: PACKED_WEIGHT_SHAPES[k]
+                                     for k in ("down1", "down2", "down3")})
+        and c == 2 and t % 8 == 0 and t >= 16 and f % 32 == 0 and f >= 32
+    )
+    return _batch_gate(ok, FORCE_PALLAS_ENCODER,
+                       num_stems(stacked_params) * magnitude.shape[0],
+                       PALLAS_ENCODER_MAX_BATCH)
 
 
 def mid_trunk(
@@ -269,7 +387,6 @@ def mid_trunk(
     up3's output (S * B, T/8, F/8, 64) NHWC, before the skip3 concat (the
     up4 kernel takes that concat as split-K)."""
     cast = lambda a: a.to(compute_dtype)
-    chan = lambda v: cast(v)[:, None, None]
     n_stems = num_stems(stacked_params)
     b = act4.shape[0] // n_stems
     out = torch.empty(
@@ -279,22 +396,44 @@ def mid_trunk(
     for s in range(n_stems):
         p = stem_params(stacked_params, s)
         rows = slice(s * b, (s + 1) * b)
-        ly = p["down5"]
-        conv5 = conv_same(act4[rows].permute(0, 3, 1, 2), cast(ly["w"]),
-                          cast(ly["b"]))
-        x = act_encoder(chan(ly["bn_scale"]) * conv5 + chan(ly["bn_shift"]),
-                        stem_mode)
-        x = conv_same(x, cast(p["down6"]["w"]), cast(p["down6"]["b"]))
-        skips = {1: conv5, 2: skip4[rows].permute(0, 3, 1, 2)}
+        conv5: list[torch.Tensor] = []
+        x = _encoder(p, act4[rows].permute(0, 3, 1, 2), range(5, 7), conv5,
+                     stem_mode, cast)
+        skips = {1: conv5[0], 2: skip4[rows].permute(0, 3, 1, 2)}
         for i in range(1, 4):
-            ly = p[f"up{i}"]
-            y = tconv_same(x, cast(ly["w"]), cast(ly["b"]))
-            x = chan(ly["bn_scale"]) * act_decoder(y, stem_mode) + chan(
-                ly["bn_shift"])
+            x = _decoder(p[f"up{i}"], x, stem_mode, cast)
             if i < 3:
                 x = torch.cat([skips[i], x], dim=1)
         out[rows] = x.permute(0, 2, 3, 1)
     return out
+
+
+def kernel_encoder(
+    stacked_params: Params,
+    magnitude: torch.Tensor,  # (B, 2, T, F) float32, shared across stems
+    n_layers: int,
+    stem_mode: int,
+    compute_dtype,
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """K2 enc1 and K3 for enc2..enc{n_layers}, every stem in one launch
+    each -> (the pre-activation skips, the last activation), NHWC (S * B,
+    ...) in the compute dtype (the reference's `encoder_packed` with four
+    layers, `encoder3_pallas` with three)."""
+    from spleeterrt_tpu_torch.kernels import encoder
+
+    act = encoder_act_name(stem_mode)
+    ly = stacked_params["down1"]
+    skip, x = encoder.enc1(
+        magnitude.float().contiguous(), ly["w"], ly["b"], ly["bn_scale"],
+        ly["bn_shift"], act=act, dtype=compute_dtype,
+    )
+    skips = [skip]
+    for i in range(2, n_layers + 1):
+        ly = stacked_params[f"down{i}"]
+        skip, x = encoder.enc_s2(x, ly["w"], ly["b"], ly["bn_scale"],
+                                 ly["bn_shift"], act=act)
+        skips.append(skip)
+    return skips, x
 
 
 def packed_unet_masks(
@@ -310,21 +449,11 @@ def packed_unet_masks(
     (skips kept in NHWC) -> plain-torch mid trunk -> K4 up4 and K5 up5
     (split-K concats) -> K6 head, whose masks are the masked iSTFT's
     input. Stems ride in the image axis of every kernel."""
-    from spleeterrt_tpu_torch.kernels import encoder, tail
+    from spleeterrt_tpu_torch.kernels import tail
 
-    enc_act = encoder_act_name(stem_mode)
     dec_act = decoder_act_name(stem_mode)
-    ly = stacked_params["down1"]
-    skip, x = encoder.enc1(
-        magnitude.float().contiguous(), ly["w"], ly["b"], ly["bn_scale"],
-        ly["bn_shift"], act=enc_act, dtype=compute_dtype,
-    )
-    skips = [skip]
-    for i in (2, 3, 4):
-        ly = stacked_params[f"down{i}"]
-        skip, x = encoder.enc_s2(x, ly["w"], ly["b"], ly["bn_scale"],
-                                 ly["bn_shift"], act=enc_act)
-        skips.append(skip)
+    skips, x = kernel_encoder(stacked_params, magnitude, 4, stem_mode,
+                              compute_dtype)
     x = mid_trunk(stacked_params, x, skips[3], stem_mode, compute_dtype)
     for i in (4, 5):
         ly = stacked_params[f"up{i}"]
@@ -333,6 +462,57 @@ def packed_unet_masks(
     ly6, ly7 = stacked_params["up6"], stacked_params["up7"]
     return tail.head(skips[0], x, ly6["w"], ly6["b"], ly6["bn_scale"],
                      ly6["bn_shift"], ly7["w"], ly7["b"], act=dec_act)
+
+
+def multi_stem_trunk(
+    stacked_params: Params,
+    magnitude: torch.Tensor,  # (B, 2, T, F) float32, shared across stems
+    stem_mode: int,
+    compute_dtype,
+) -> torch.Tensor:
+    """Every stem's trunk -> up6's input (S * B, T/2, F/2, C) NHWC in the
+    compute dtype, image s * B + b from stem s (the reference's
+    `_multi_stem_trunk`). Where `use_pallas_encoder` holds, K2 enc1 and K3
+    enc2, enc3 run every stem in one launch each and `trunk_tail` takes
+    over; otherwise each stem runs `unet_trunk`."""
+    n_stems = num_stems(stacked_params)
+    b = magnitude.shape[0]
+    fronts = None
+    if use_pallas_encoder(stacked_params, magnitude):
+        skips, act3 = kernel_encoder(stacked_params, magnitude, 3, stem_mode,
+                                     compute_dtype)
+        fronts = [*skips, act3]
+    out = None
+    for s in range(n_stems):
+        p = stem_params(stacked_params, s)
+        if fronts is None:
+            y = unet_trunk(p, magnitude, stem_mode, compute_dtype)
+        else:  # the kernels' NHWC outputs, as this stem's NCHW views
+            *skips3, x = (a[s * b : (s + 1) * b].permute(0, 3, 1, 2)
+                          for a in fronts)
+            y = trunk_tail(p, x, skips3, stem_mode, compute_dtype)
+        y = y.permute(0, 2, 3, 1)
+        if out is None:
+            out = torch.empty((n_stems * b, *y.shape[1:]), dtype=y.dtype,
+                              device=y.device)
+        out[s * b : (s + 1) * b] = y
+    return out
+
+
+def pallas_head(
+    stacked_params: Params, x: torch.Tensor, stem_mode: int
+) -> torch.Tensor:
+    """K10 over up6's input (S * B, T/2, F/2, 32) NHWC -> masks (S, B, 2, T,
+    F) float32 (the reference's `_pallas_head`, whose NHWC transpose the
+    port does not need: K10 writes the masked iSTFT's layout)."""
+    from spleeterrt_tpu_torch.kernels import mask_head
+
+    ly6, ly7 = stacked_params["up6"], stacked_params["up7"]
+    masks = mask_head.mask_head(
+        x, ly6["w"], ly6["b"], ly6["bn_scale"], ly6["bn_shift"], ly7["w"],
+        ly7["b"], act=decoder_act_name(stem_mode),
+    )
+    return masks.view(num_stems(stacked_params), -1, *masks.shape[1:])
 
 
 def multi_stem_masks_canonical(
@@ -364,10 +544,24 @@ def multi_stem_masks(
     sigmoid: str = "exact",
 ) -> torch.Tensor:
     """S stacked nets over one NCHW magnitude batch -> (S, B, 2, T, F) fp32:
-    the packed route where `use_packed_unet` holds, else the canonical."""
+    the packed route where `use_packed_unet` holds, else the round-3 route
+    where its head or encoder gate holds, else the canonical."""
     if use_packed_unet(stacked_params, magnitude, sigmoid):
         return packed_unet_masks(stacked_params, magnitude, stem_mode,
                                  compute_dtype)
+    use_head = use_pallas_head(stacked_params, magnitude, sigmoid)
+    if use_head or use_pallas_encoder(stacked_params, magnitude):
+        trunk = multi_stem_trunk(stacked_params, magnitude, stem_mode,
+                                 compute_dtype)
+        if use_head:
+            return pallas_head(stacked_params, trunk, stem_mode)
+        n_stems = num_stems(stacked_params)
+        return torch.stack([
+            canonical_head(stem_params(stacked_params, s),
+                           x.permute(0, 3, 1, 2), stem_mode, compute_dtype,
+                           sigmoid)
+            for s, x in enumerate(trunk.chunk(n_stems))
+        ])
     return multi_stem_masks_canonical(stacked_params, magnitude, stem_mode,
                                       compute_dtype, sigmoid)
 

@@ -1,14 +1,20 @@
-// Packed U-Net head: up6 + up7 + sigmoid, writing the masks straight into
-// the masked iSTFT's input layout.
+// U-Net head: up6 + up7 + sigmoid, writing the masks straight into the
+// masked iSTFT's input layout. One kernel template, two entry points:
+// K6 (spleeterrt_head) reads its 32 input channels from two NHWC tensors of
+// 16 channels each, skip1 and up5out; K10 (spleeterrt_mask_head) reads them
+// from one NHWC tensor of 32, x = [skip1 | up5out], as channel-stride-32
+// sources at x and x + 16, so x is never split into two copies.
 //   y6   = bn_scale * act(tconv5x5_s2([skip1, up5out], w6) + b6) + bn_shift
 //          (32 -> 1 channel, TF-SAME, decoder epilogue), zero outside the
 //          image, rounded to the compute dtype;
 //   mask = sigmoid(conv4x4_dil2_pad3(y6, w7) + b7)   (1 -> 2 channels).
 //
-// Replaces spleeterrt_tpu/kernels/tail.py::_head_kernel (reached through
-// head_packed). Same values, not the TPU's packed lanes or parity-mix
-// matrices: the sources are NHWC (16 channels each) in the compute dtype;
-// the output is float32 (S, B, 2, T, F) = [n_img][2][T][F], the layout
+// Replaces spleeterrt_tpu/kernels/tail.py::_head_kernel (K6, reached through
+// head_packed) and spleeterrt_tpu/kernels/mask_head.py::_head_kernel (K10,
+// the round-3 head, reached through mask_head_pallas). Same values, not the
+// TPU's packed lanes or parity-mix matrices: the sources are NHWC in the
+// compute dtype; the output is float32 (S, B, 2, T, F) = [n_img][2][T][F]
+// (K10's (S * B, 2, T, F) is the same memory), the layout
 // kernels/stft_fused.py::masked_istft4096 reads, so nothing sits between
 // the U-Net and the iSTFT. Output image n uses stem n / bper's weights.
 //
@@ -26,7 +32,9 @@
 // What bounds it on an H100: bytes. 91 M multiply-adds per image (1.4x
 // that with the halo) against 1.93 GB moved at 300 s, about 10 per byte,
 // near the card's fp32 FMA balance; the masks (float32, 4 bytes per
-// channel and pixel) are the largest stream. fp32 FMA on CUDA cores.
+// channel and pixel) are the largest stream. fp32 FMA on CUDA cores. K10
+// stages the same channels in the same rounds as K6; only the stride from
+// one pixel to the next doubles.
 #include "unet.cuh"
 
 namespace spleeterrt {
@@ -41,10 +49,12 @@ constexpr int kChunk = 8;                           // input channels per round
 constexpr int kGroups = kLH * kLW;
 constexpr int kGroupsPerThread = (kGroups + kUnetThreads - 1) / kUnetThreads;
 
-// skip1, up5: [n_img][H2][W2][16] in T. w6k: [S][32][25] in T.
-// w7k: [S][2][16] in T. scal: [S][5] float (b6, bn_scale6, bn_shift6,
-// b7[0], b7[1]). masks: [n_img][2][2 * H2][2 * W2] float.
-template <typename T>
+// skip1, up5: [n_img][H2][W2][kCS] in T, channels [0, 16) of each pixel
+// read (kCS = 16: two tensors; kCS = 32: up5 = skip1 + 16 in one tensor).
+// w6k: [S][32][25] in T. w7k: [S][2][16] in T. scal: [S][5] float (b6,
+// bn_scale6, bn_shift6, b7[0], b7[1]). masks: [n_img][2][2 * H2][2 * W2]
+// float.
+template <typename T, int kCS>
 __global__ void __launch_bounds__(kUnetThreads)
 head_kernel(const T* __restrict__ skip1, const T* __restrict__ up5,
             const T* __restrict__ w6k, const T* __restrict__ w7k,
@@ -69,7 +79,7 @@ head_kernel(const T* __restrict__ skip1, const T* __restrict__ up5,
 
   for (int c0 = 0; c0 < 32; c0 += kChunk) {
     const T* x = (c0 < 16 ? skip1 : up5) +
-                 static_cast<long long>(n) * H2 * W2 * 16 + c0 % 16;
+                 static_cast<long long>(n) * H2 * W2 * kCS + c0 % 16;
     for (int idx = tid; idx < kChunk * kIH * kIW; idx += kUnetThreads) {
       const int ci = idx % kChunk;
       const int lc = (idx / kChunk) % kIW;
@@ -77,7 +87,7 @@ head_kernel(const T* __restrict__ skip1, const T* __restrict__ up5,
       const int h = g0h - 1 + lr, w = g0w - 1 + lc;
       float v = 0.f;
       if (h >= 0 && h < H2 && w >= 0 && w < W2)
-        v = to_f32(x[(static_cast<long long>(h) * W2 + w) * 16 + ci]);
+        v = to_f32(x[(static_cast<long long>(h) * W2 + w) * kCS + ci]);
       xs[ci][lr][lc] = v;
     }
     for (int idx = tid; idx < kChunk * 25; idx += kUnetThreads)
@@ -164,12 +174,12 @@ head_kernel(const T* __restrict__ skip1, const T* __restrict__ up5,
   }
 }
 
-template <typename T>
+template <typename T, int kCS>
 int launch_head(const void* skip1, const void* up5, const void* w6k,
                 const void* w7k, const void* scal, int n_img, int bper, int H2,
                 int W2, int act, void* masks, cudaStream_t stream) {
   const dim3 grid((2 * W2 + kTX - 1) / kTX, (2 * H2 + kTY - 1) / kTY, n_img);
-  head_kernel<T><<<grid, kUnetThreads, 0, stream>>>(
+  head_kernel<T, kCS><<<grid, kUnetThreads, 0, stream>>>(
       static_cast<const T*>(skip1), static_cast<const T*>(up5),
       static_cast<const T*>(w6k), static_cast<const T*>(w7k),
       static_cast<const float*>(scal), bper, H2, W2, act,
@@ -181,7 +191,7 @@ int launch_head(const void* skip1, const void* up5, const void* w6k,
 
 }  // namespace spleeterrt
 
-// The head over n_img images whose sources are H2 x W2 (half the mask's
+// K6 over n_img images whose sources are H2 x W2 (half the mask's
 // resolution). Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int spleeterrt_head(int bf16, const void* skip1, const void* up5,
                                const void* w6k, const void* w7k,
@@ -189,8 +199,26 @@ extern "C" int spleeterrt_head(int bf16, const void* skip1, const void* up5,
                                int W2, int act, void* masks, void* stream) {
   using namespace spleeterrt;
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_head<__nv_bfloat16>(skip1, up5, w6k, w7k, scal, n_img,
-                                           bper, H2, W2, act, masks, st)
-              : launch_head<float>(skip1, up5, w6k, w7k, scal, n_img, bper, H2,
-                                   W2, act, masks, st);
+  return bf16 ? launch_head<__nv_bfloat16, 16>(skip1, up5, w6k, w7k, scal,
+                                               n_img, bper, H2, W2, act, masks,
+                                               st)
+              : launch_head<float, 16>(skip1, up5, w6k, w7k, scal, n_img, bper,
+                                       H2, W2, act, masks, st);
+}
+
+// K10: the same head from one source x, [n_img][H2][W2][32].
+extern "C" int spleeterrt_mask_head(int bf16, const void* x, const void* w6k,
+                                    const void* w7k, const void* scal,
+                                    int n_img, int bper, int H2, int W2,
+                                    int act, void* masks, void* stream) {
+  using namespace spleeterrt;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    return launch_head<__nv_bfloat16, 32>(xb, xb + 16, w6k, w7k, scal, n_img,
+                                          bper, H2, W2, act, masks, st);
+  }
+  const auto* xf = static_cast<const float*>(x);
+  return launch_head<float, 32>(xf, xf + 16, w6k, w7k, scal, n_img, bper, H2,
+                                W2, act, masks, st);
 }

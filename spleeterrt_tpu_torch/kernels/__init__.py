@@ -2,8 +2,9 @@
 
 K1 `stft_fused.stft4096`, K2 `encoder.enc1`, K3 `encoder.enc_s2` (enc2,
 enc3 and enc4), K4 and K5 `tail.up_shallow` (up4, up5), K6 `tail.head`,
-K7 `stft_fused.masked_istft4096`, K8 `pallas_fft.irfft4096` and K9
-`pallas_fft.masked_irfft4096`. Each wrapper checks its tensors, takes its
+K7 `stft_fused.masked_istft4096`, K8 `pallas_fft.irfft4096`, K9
+`pallas_fft.masked_irfft4096` and K10 `mask_head.mask_head` (the round-3
+route's head, K6's kernel template with one source). Each wrapper checks its tensors, takes its
 plain torch version for a tensor on the CPU, and launches its kernel or
 raises for a CUDA tensor.
 
@@ -27,7 +28,7 @@ ACT_CODES = {"elu": 0, "leaky": 1, "relu": 2}
 
 # Kernel names in dataflow order; up_shallow counts up4 and up5 apart.
 KERNELS = ("stft4096", "enc1", "enc_s2", "up4", "up5", "head",
-           "masked_istft4096", "irfft4096", "masked_irfft4096")
+           "masked_istft4096", "irfft4096", "masked_irfft4096", "mask_head")
 _launches = dict.fromkeys(KERNELS, 0)
 
 

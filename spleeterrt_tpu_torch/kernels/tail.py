@@ -53,6 +53,8 @@ def _lib() -> ctypes.CDLL:
     lib.spleeterrt_up_tconv.restype = i
     lib.spleeterrt_head.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p]
     lib.spleeterrt_head.restype = i
+    lib.spleeterrt_mask_head.argtypes = [i, p, p, p, p, i, i, i, i, i, p, p]
+    lib.spleeterrt_mask_head.restype = i
     return lib
 
 
@@ -174,6 +176,28 @@ def head_error_bound(skip1, up5, w6, b6, bn_scale6, bn_shift6, w7, b7, *,
     return torch.stack(bounds)
 
 
+def check_head_params(dev, n_img, w6, b6, bn_scale6, bn_shift6, w7, b7) -> int:
+    """Check the head's stacked float32 params for `n_img` images; returns
+    the number of stems S (K6 and K10 take the same params)."""
+    vecs = {"b6": b6, "bn_scale6": bn_scale6, "bn_shift6": bn_shift6}
+    s = check_layer(dev, w6, (32, 1, 5, 5), vecs, 1, name="w6")
+    if check_layer(dev, w7, (2, 1, 4, 4), {"b7": b7}, 2, name="w7") != s:
+        raise ValueError("w6 and w7 disagree on the number of stems")
+    if n_img % s:
+        raise ValueError(f"the sources hold {n_img} images, not a multiple of {s} stems")
+    return s
+
+
+def head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7, dtype):
+    """The head kernel's weights in `dtype`, (S, 32, 25) and (S, 2, 16), and
+    its scalar table (S, 5) float32: b6, bn_scale6, bn_shift6, b7. The
+    caller keeps all three bound to names until the launch returns."""
+    s = w6.shape[0]
+    return (w6.to(dtype).reshape(s, 32, 25).contiguous(),
+            w7.to(dtype).reshape(s, 2, 16).contiguous(),
+            torch.cat([b6, bn_scale6, bn_shift6, b7], 1).contiguous())
+
+
 def head(
     skip1: torch.Tensor,  # (S * B, H, W, 16) NHWC: enc1's skip
     up5: torch.Tensor,  # (S * B, H, W, 16): up5's output, same dtype
@@ -192,12 +216,7 @@ def head(
     sb, h, wd, c = skip1.shape
     if c != HEAD_WIDTH:
         raise ValueError(f"skip1 must have {HEAD_WIDTH} channels, got {c}")
-    vecs = {"b6": b6, "bn_scale6": bn_scale6, "bn_shift6": bn_shift6}
-    s = check_layer(dev, w6, (32, 1, 5, 5), vecs, 1, name="w6")
-    if check_layer(dev, w7, (2, 1, 4, 4), {"b7": b7}, 2, name="w7") != s:
-        raise ValueError("w6 and w7 disagree on the number of stems")
-    if sb % s:
-        raise ValueError(f"skip1 holds {sb} images, not a multiple of {s} stems")
+    s = check_head_params(dev, sb, w6, b6, bn_scale6, bn_shift6, w7, b7)
     code = check_act(act, ACTS)
     if dev.type == "cpu":
         return head_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, w7, b7,
@@ -207,9 +226,7 @@ def head(
     masks = torch.empty((s, sb // s, 2, 2 * h, 2 * wd), dtype=torch.float32,
                         device=dev)
     dtype = skip1.dtype
-    w6k = w6.to(dtype).reshape(s, 32, 25).contiguous()
-    w7k = w7.to(dtype).reshape(s, 2, 16).contiguous()
-    scal = torch.cat([b6, bn_scale6, bn_shift6, b7], 1).contiguous()  # (S, 5)
+    w6k, w7k, scal = head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7, dtype)
     with torch.cuda.device(dev):
         launch(
             _lib().spleeterrt_head, int(dtype == torch.bfloat16),

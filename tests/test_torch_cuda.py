@@ -6,7 +6,8 @@ the narrowest and widest bin limits, spans that end mid-block; for K2-K6
 the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
 one tile and an odd tile count, one stem and four, both compute dtypes;
 for K8/K9 one frame and odd frame counts, bin limits 512 and 2048, with
-and without a window; and one streaming block step at K = 1.
+and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
+and the round-3 route; and one streaming block step at K = 1.
 Where there is no CUDA device every test skips. On a machine with one
 (which may lack jax, which tests/conftest.py imports):
 
@@ -17,7 +18,8 @@ fault gives errors of order max|X|, rounding about 1e-7 of it. K2-K5 sum
 in fp32 like their plain versions (TF32 off): 1e-5 of max|plain| in fp32;
 in bf16 the outputs round once, so a sum that lands on the other side of
 a rounding boundary differs by one ulp: 2 bf16 ulps of max|plain|. K6's
-masks are held pixel by pixel to tail.head_error_bound.
+masks are held pixel by pixel to tail.head_error_bound, K10's to the same
+bound on x's two halves.
 """
 
 import math
@@ -29,7 +31,13 @@ import torch
 from spleeterrt_tpu_torch import kernels
 from spleeterrt_tpu_torch.config import SeparatorConfig, TransformConfig
 from spleeterrt_tpu_torch.core import model, transform
-from spleeterrt_tpu_torch.kernels import encoder, pallas_fft, stft_fused, tail
+from spleeterrt_tpu_torch.kernels import (
+    encoder,
+    mask_head,
+    pallas_fft,
+    stft_fused,
+    tail,
+)
 from spleeterrt_tpu_torch.runtime import stream
 
 pytestmark = pytest.mark.cuda
@@ -235,9 +243,56 @@ def test_packed_unet_runs_every_kernel_once(device):
     counts = kernels.launch_counts()
     assert counts == {"stft4096": 0, "enc1": 1, "enc_s2": 3, "up4": 1,
                       "up5": 1, "head": 1, "masked_istft4096": 0,
-                      "irfft4096": 0, "masked_irfft4096": 0}
+                      "irfft4096": 0, "masked_irfft4096": 0, "mask_head": 0}
     cpu = {k: {f: v.cpu() for f, v in ly.items()} for k, ly in stacked.items()}
     ref = model.multi_stem_masks(cpu, mag.cpu())
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_stems,n_img,t2,f2", [
+    (1, 1, 32, 16),  # one row tile, F/2 = 16
+    (1, 1, 96, 48),
+    (4, 64, 32, 16),  # S * B = 64, the gate's limit
+    (1, 64, 64, 256),
+])
+def test_mask_head_kernel_matches_plain(device, dtype, n_stems, n_img, t2, f2):
+    gen = torch.Generator().manual_seed(n_img + t2 + f2 + n_stems)
+    x = torch.randn((n_img, t2, f2, 32), generator=gen).to(device, dtype)
+    act = "elu" if n_stems == 4 else "relu"
+    w6, b6, s6, h6 = _layer(gen, n_stems, (32, 1, 5, 5), 1, device)
+    w7, b7, _, _ = _layer(gen, n_stems, (2, 1, 4, 4), 2, device)
+    args = (x, w6, b6, s6, h6, w7, b7)
+    got = _counted("mask_head", mask_head.mask_head, *args, act=act)
+    ref = mask_head.mask_head_plain(*args, act=act)
+    assert got.shape == ref.shape == (n_img, 2, 2 * t2, 2 * f2)
+    err = (got - ref).abs()
+    bound = mask_head.mask_head_error_bound(*args, act=act)
+    assert torch.all(err <= bound), f"mask_head: max error / bound {(err / bound).max()}"
+    # K6 on x's two halves is the same kernel: the same masks, bit for bit.
+    k6 = tail.head(x[..., :16].contiguous(), x[..., 16:].contiguous(),
+                   *args[1:], act=act)
+    assert torch.equal(got, k6.flatten(0, 1))
+
+
+def test_round3_route_runs_its_kernels(device, monkeypatch):
+    """multi_stem_masks with FORCE_PACKED_UNET = False on the card: K2 once,
+    K3 twice (enc2, enc3), K10 once, no K4/K5/K6; the masks match the same
+    route on the CPU."""
+    monkeypatch.setattr(model, "FORCE_PACKED_UNET", False)
+    gen = torch.Generator().manual_seed(6)
+    params = [model.init_params(gen) for _ in range(2)]
+    cpu = {k: {f: torch.stack([p[k][f] for p in params]) for f in params[0][k]}
+           for k in params[0]}
+    stacked = {k: {f: v.to(device) for f, v in ly.items()} for k, ly in cpu.items()}
+    mag = torch.rand((3, 2, 64, 128), generator=gen) * 4
+    kernels.reset_launch_counts()
+    got = model.multi_stem_masks(stacked, mag.to(device))
+    assert kernels.launch_counts() == {
+        "stft4096": 0, "enc1": 1, "enc_s2": 2, "up4": 0, "up5": 0, "head": 0,
+        "masked_istft4096": 0, "irfft4096": 0, "masked_irfft4096": 0,
+        "mask_head": 1}
+    ref = model.multi_stem_masks(cpu, mag)
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
 
 
@@ -266,6 +321,9 @@ def test_unet_wrappers_refuse_mixed_and_bad_inputs(device):
     w7, b7, _, _ = _layer(gen, 1, (2, 1, 4, 4), 2, device)
     with pytest.raises(ValueError, match="w7 is on cpu"):
         tail.head(h, h, *w6, w7.cpu(), b7, act="elu")
+    x = torch.rand((1, 32, 32, 32), generator=gen).to(device)
+    with pytest.raises(ValueError, match="w6 is on cpu"):
+        mask_head.mask_head(x, *(t.cpu() for t in w6), w7, b7, act="elu")
     assert not any(kernels.launch_counts().values())
 
 
@@ -350,7 +408,7 @@ def test_block_step_streams_launches_each_kernel_once(device):
         assert kernels.launch_counts() == {
             "stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1,
             "head": 1, "masked_istft4096": 0, "irfft4096": 1,
-            "masked_irfft4096": 0}
+            "masked_irfft4096": 0, "mask_head": 0}
         ref_state, ref = stream.block_step_streams(cpu, ref_state, blocks[i], cfg,
                                                    2, (0.25, 0.0))
     assert ref.abs().max() > 0.01
