@@ -13,9 +13,11 @@ Phases, each of which raises (non-zero exit) on failure:
    (bin_limit 1536, time_step 256, 4 stems); K2-K6 (the packed U-Net) in
    float32 and in bfloat16, each on the outputs of the plain chain before
    it, with the CLI's weights but random biases and batch norms (K6 held
-   to a per-pixel bound); K8 on the masked spectrum of one streaming block
-   of 4 streams and K9 at the 30 s overlap-2 shapes, both in float32 and
-   each run twice (bit-identical).
+   to a per-pixel bound; K3 also run twice, bit-identical, and each of its
+   layers timed beside its bound and cuDNN's bf16 convolution alone, a
+   convolution-only yardstick); K8 on the masked spectrum of one streaming
+   block of 4 streams and K9 at the 30 s overlap-2 shapes, both in float32
+   and each run twice (bit-identical).
 3. The main path through the user's entry point: the CLI separates a 30 s
    synthetic WAV into 4 stems (VST config, bf16, random full-width
    weights); the launch counts must be K1, K2, K4, K5, K6, K7 once and K3
@@ -39,12 +41,14 @@ Phases, each of which raises (non-zero exit) on failure:
 8. 4-stem separation time at 150 s and 300 s (CUDA events): realtime
    factor, marginal rate, peak device memory, a per-stage breakdown at
    300 s (K1, K2, K3 x3, mid trunk, K4, K5, K6, K7, each kernel beside its
-   plain version, and the canonical cuDNN U-Net for comparison), and a
+   plain version, each K3 layer beside its bound, the fp32 FMA floor and
+   cuDNN's convolution alone, and the canonical cuDNN U-Net), and a
    profile of one 300 s separation (device busy time by kernel).
 9. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
    4, 16 and 64 streams, carrying the state: ms per block, the aggregate
    realtime factor, peak memory, the largest K inside the 5.944 s block
-   deadline, a stage breakdown at K = 16 and a profile at K = 1 and 16.
+   deadline, a stage breakdown at K = 16 (with torch.fft.irfft beside K8's
+   stage) and a profile at K = 1 and 16.
 10. 2, 3 and 5 stems through the CLI on the 30 s WAV (bf16): 2 stems at the
    CLI's defaults (the reference exe's config: bin_limit 1024, time_step
    512) with random weights, 3 stems from a quantized two-subnet file the
@@ -396,13 +400,18 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                 f"{worst:.3e}")
             if not worst <= 1:
                 raise AssertionError(f"{label} disagrees with its plain version")
+            if name == "enc_s2" and not all(
+                    torch.equal(a, b) for a, b in zip(got, fn(*args, **kw))):
+                raise AssertionError(f"{label} is not deterministic")
             if dtype != cfg.compute_dtype:
                 continue
             with cudnn_deterministic(False):  # time what the path runs
                 ms = cuda_ms(lambda: fn(*args, **kw))
                 plain_ms = cuda_ms(lambda: plain(*args, **kw))
-            log(f"[{label} {name}] 30 s shapes, {str(dtype)[6:]}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                log(f"[{label} {name}] 30 s shapes, {str(dtype)[6:]}: kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                if name == "enc_s2":
+                    log_k3_layer(f"{label}, 30 s", args, kw, ms)
             entry = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                              "plain_ms": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -457,6 +466,25 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     for name, calls in timed.items():
         report[name].update(bound_entry(calls), library_ms=None)
     return report
+
+
+def log_k3_layer(label: str, args, kw, ms: float) -> None:
+    """One K3 layer's time beside its bound, the fp32 FMA floor (its
+    multiply-adds on CUDA cores at 67 TFLOP/s) and cuDNN's convolution
+    alone at the same shape: a convolution-only yardstick (bf16,
+    channels_last, stride 2, padding 2: the same output size and
+    multiply-adds, but no bias, batch norm or activation and one output),
+    not a library call for K3's function."""
+    bound = bound_entry([("enc_s2", args, kw)])
+    floor_ms = kernel_work("enc_s2", args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    x, w = args[0], args[1]
+    xc = x.permute(0, 3, 1, 2)  # NHWC memory: an NCHW view in channels_last
+    wc = w[0].to(x.dtype).contiguous(memory_format=torch.channels_last)
+    conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(xc, wc, stride=2, padding=2))
+    log(f"[{label}] x {tuple(x.shape)} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+        f"{100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms; "
+        f"cuDNN conv2d alone (yardstick) {conv_ms:.4f} ms")
 
 
 @contextlib.contextmanager
@@ -815,6 +843,9 @@ def phase_timing(device) -> None:
                 lambda: model.mid_trunk(*trunk_args), 5, 1)
         stages[label] = cuda_ms(lambda: fn(*args, **kw), 5, 1)
         stages[f"{label} plain"] = cuda_ms(lambda: plain(*args, **kw), 3, 1)
+        if label.startswith("K3"):
+            log_k3_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw,
+                         stages[label])
     del calls, trunk_args
     stages["K7 masked_istft4096"] = cuda_ms(
         lambda: stft_fused.masked_istft4096(*k7_args), 10)
@@ -1051,6 +1082,8 @@ def stream_stages(stacked, state, block, cfg) -> None:
             lambda: stream.masked_spectrum(state.spec2, state.masks2, uw), 10),
         "K8 irfft4096": cuda_ms(lambda: pallas_fft.irfft4096(masked), 10),
         "K8 plain": cuda_ms(lambda: pallas_fft.irfft4096_plain(masked), 5, 1),
+        "torch.fft.irfft (cuFFT alone)": cuda_ms(
+            lambda: torch.fft.irfft(masked, n=4096), 10),
         "tails + overlap-add (torch)": cuda_ms(
             lambda: stream.synthesize(frames, state.ola_tail, ws), 10),
         "block step": cuda_ms(

@@ -1,7 +1,8 @@
 // Shared pieces of the fused STFT (stft.cu), masked iSTFT (istft.cu) and
 // frames-out inverse FFT (irfft.cu) kernels: constants, complex helpers, a
-// 2048-point complex FFT in shared memory and the masked Hermitian merge
-// that feeds its inverse.
+// radix-2 2048-point complex FFT in shared memory (K1 and K7; irfft.cu
+// runs the register-radix core of fft2048_radix.cuh) and the masked
+// Hermitian merge that feeds the inverse.
 //
 // A real 4096-point transform runs as one 2048-point complex FFT of the
 // even/odd sample pairs z[n] = x[2n] + i x[2n+1], plus an O(N) split step
@@ -67,23 +68,29 @@ static __device__ __forceinline__ float2 masked_bin(const float2* __restrict__ X
   return v;
 }
 
-// Merge the masked Hermitian half-spectrum Y (masked_bin of X) into buf,
-// in bit-reversed order, as the 2048-point complex input
+// Bin k < 2048 of the 2048-point complex input merged from the masked
+// Hermitian half-spectrum Y (masked_bin of X):
 // Z[k] = (Y[k] + conj Y[2048-k]) + i conj(W^k) (Y[k] - conj Y[2048-k]),
-// whose unnormalised inverse FFT is N (y[2n] + i y[2n+1]). Ends
+// whose unnormalised inverse FFT is N (y[2n] + i y[2n+1]).
+static __device__ __forceinline__ float2 merged_bin(
+    const float2* __restrict__ X, const float* __restrict__ m, float out_band,
+    int bin_limit, const float2* __restrict__ tw, int k) {
+  const float2 a = masked_bin(X, m, out_band, bin_limit, k);
+  const float2 c = masked_bin(X, m, out_band, bin_limit, kHalf - k);
+  const float2 b = make_float2(c.x, -c.y);
+  float2 w = __ldg(&tw[k]);
+  w.y = -w.y;
+  const float2 t = cmul(w, make_float2(a.x - b.x, a.y - b.y));
+  return make_float2(a.x + b.x - t.y, a.y + b.y + t.x);
+}
+
+// merged_bin for every k into buf, in bit-reversed order. Ends
 // synchronised, ready for fft2048<true>.
 static __device__ __forceinline__ void merge_hermitian(
     float2* buf, const float2* __restrict__ X, const float* __restrict__ m,
     float out_band, int bin_limit, const float2* __restrict__ tw) {
-  for (int k = threadIdx.x; k < kHalf; k += blockDim.x) {
-    const float2 a = masked_bin(X, m, out_band, bin_limit, k);
-    const float2 c = masked_bin(X, m, out_band, bin_limit, kHalf - k);
-    const float2 b = make_float2(c.x, -c.y);
-    float2 w = __ldg(&tw[k]);
-    w.y = -w.y;
-    const float2 t = cmul(w, make_float2(a.x - b.x, a.y - b.y));
-    buf[bitrev11(k)] = make_float2(a.x + b.x - t.y, a.y + b.y + t.x);
-  }
+  for (int k = threadIdx.x; k < kHalf; k += blockDim.x)
+    buf[bitrev11(k)] = merged_bin(X, m, out_band, bin_limit, tw, k);
   __syncthreads();
 }
 

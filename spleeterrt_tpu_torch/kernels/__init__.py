@@ -71,11 +71,35 @@ def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _twiddles4096_np() -> np.ndarray:
+    return np.exp(-2j * np.pi * np.arange(2048) / 4096).astype(np.complex64)
+
+
 @functools.cache
 def twiddles4096(device: torch.device) -> torch.Tensor:
     """The FFT kernels' table (csrc/fft2048.cuh): tw[j] = exp(-2 pi i j /
     4096), j < 2048, in float64 math with one rounding to complex64."""
-    tw = np.exp(-2j * np.pi * np.arange(2048) / 4096).astype(np.complex64)
+    return torch.from_numpy(_twiddles4096_np()).to(device)
+
+
+def radix_pass_twiddles() -> np.ndarray:
+    """The pass twiddles of the register-radix 2048-point inverse FFT
+    (csrc/fft2048_radix.cuh), each in [r][k] order: exp(+2 pi i r k / 256)
+    for r, k < 16 (pass 2), then exp(+2 pi i r j / 2048) for r < 8, j <
+    256 (pass 3); float64 math, one rounding to complex64."""
+    r2, k2 = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    r3, j3 = np.meshgrid(np.arange(8), np.arange(256), indexing="ij")
+    return np.concatenate([
+        np.exp(2j * np.pi * r2 * k2 / 256).ravel(),
+        np.exp(2j * np.pi * r3 * j3 / 2048).ravel(),
+    ]).astype(np.complex64)
+
+
+@functools.cache
+def irfft_twiddles(device: torch.device) -> torch.Tensor:
+    """K8/K9's table (csrc/irfft.cu): twiddles4096's 2048 entries, then
+    radix_pass_twiddles' 2304."""
+    tw = np.concatenate([_twiddles4096_np(), radix_pass_twiddles()])
     return torch.from_numpy(tw).to(device)
 
 

@@ -1,6 +1,6 @@
 """Packed U-Net encoder, enc1..enc4: wrappers, plain versions.
 
-Two wrappers over one CUDA kernel template (csrc/encoder.cu) replace the
+Two wrappers over the CUDA kernels of csrc/encoder.cu replace the
 reference package's Pallas kernels spleeterrt_tpu/kernels/encoder.py::
 _enc1_kernel (K2, enc1, 2 -> 16 channels) and ::_s2_kernel (K3, enc2,
 enc3 and enc4, C -> 2C for C = 16, 32, 64). Per layer they compute
@@ -14,6 +14,9 @@ are NHWC (S * B, H/2, W/2, C): image s * B + b is stem s's net on tile b.
 enc1 reads the stem-shared magnitude tiles (B, 2, T, F) float32 from the
 fused STFT and never copies them per stem.
 
+On the card, bf16 enc2-enc4 run an implicit GEMM on the tensor cores
+(mma.sync, bf16 operands, float32 sums); float32 layers and enc1 run an
+fp32 FMA template. The rule is fixed on dtype and Cin (`_tensor_cores`).
 On a CPU tensor each wrapper returns its plain version (`*_plain`, torch
 convolutions in float32 on the same rounded operands); on a CUDA tensor it
 launches the kernel or raises.
@@ -52,8 +55,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _tensor_cores(cin: int, dtype) -> bool:
+    """The fixed rule of csrc/encoder.cu: bf16 enc2-enc4 run the tensor-core
+    template, fp32 layers and enc1 the FMA template."""
+    return dtype == torch.bfloat16 and cin in S2_WIDTHS
+
+
 def _conv_weights(w: torch.Tensor, dtype) -> torch.Tensor:
-    """(S, Cout, Cin, 5, 5) -> the kernel's (S, 5, 5, Cin, Cout) in dtype."""
+    """(S, Cout, Cin, 5, 5) -> the kernel's layout in dtype: (S, 25, Cout,
+    Cin) for the tensor cores (one tap's B operand, K contiguous), else
+    (S, 5, 5, Cin, Cout)."""
+    s, cout, cin = w.shape[:3]
+    if _tensor_cores(cin, dtype):
+        return w.to(dtype).permute(0, 3, 4, 1, 2).reshape(s, 25, cout, cin).contiguous()
     return w.to(dtype).permute(0, 3, 4, 2, 1).contiguous()
 
 
@@ -152,6 +166,8 @@ def enc_s2(
         return enc_s2_plain(x, w, b, bn_scale, bn_shift, act=act)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if _tensor_cores(c, x.dtype) and x.data_ptr() % 16:  # 16-byte cp.async
+        raise ValueError("x must be 16-byte aligned")
     skip = torch.empty((sb, h // 2, wd // 2, 2 * c), dtype=x.dtype, device=dev)
     actv = torch.empty_like(skip)
     wk = _conv_weights(w, x.dtype)

@@ -1,7 +1,8 @@
 """4096-point inverse real FFT with frames out, plain and masked: wrappers,
 plain versions and launch counts.
 
-One CUDA kernel template written for Hopper (csrc/irfft.cu; built by
+One CUDA kernel template written for Hopper (csrc/irfft.cu, on the
+register-radix FFT core of csrc/fft2048_radix.cuh; built by
 kernels/_build.py) replaces the Pallas kernels of the reference package's
 module of the same name: K8 `irfft4096` for
 spleeterrt_tpu/kernels/pallas_fft.py::_irfft_kernel and K9
@@ -27,9 +28,9 @@ from spleeterrt_tpu_torch.kernels import (
     _build,
     check_tensor as _check,
     count_launch,
+    irfft_twiddles,
     launch as _launch,
     stream_of,
-    twiddles4096,
 )
 
 N = 4096
@@ -68,6 +69,8 @@ def _check_spec_window(spec: torch.Tensor, window) -> int:
         _check(window, "window", torch.float32, 1, dev)
         if window.shape[0] != N:
             raise ValueError(f"window must have {N} samples")
+        if window.data_ptr() % 16:  # the kernel reads it as float4
+            raise ValueError("window must be 16-byte aligned")
     n_frames = math.prod(spec.shape[:-1])
     if not 0 < n_frames < 2**31:
         raise ValueError(f"spec must hold 1 to 2**31 - 1 frames, got {n_frames}")
@@ -101,7 +104,7 @@ def irfft4096(
         _launch(
             _lib().spleeterrt_irfft4096,
             spec.data_ptr(), None if window is None else window.data_ptr(),
-            twiddles4096(dev).data_ptr(), n_frames, out.data_ptr(),
+            irfft_twiddles(dev).data_ptr(), n_frames, out.data_ptr(),
             stream_of(dev),
         )
     count_launch("irfft4096")
@@ -156,7 +159,7 @@ def masked_irfft4096(
             _lib().spleeterrt_masked_irfft4096,
             spec.data_ptr(), masks.data_ptr(), out_band.data_ptr(),
             None if window is None else window.data_ptr(),
-            twiddles4096(dev).data_ptr(), s, n_frames, bin_limit,
+            irfft_twiddles(dev).data_ptr(), s, n_frames, bin_limit,
             out.data_ptr(), stream_of(dev),
         )
     count_launch("masked_irfft4096")

@@ -5,8 +5,10 @@ add edge shapes: for K1/K7 lengths that end mid-frame, one and three rows,
 the narrowest and widest bin limits, spans that end mid-block; for K2-K6
 the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
 one tile and an odd tile count, one stem and four, both compute dtypes;
-for K8/K9 one frame and odd frame counts, bin limits 512 and 2048, with
-and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
+bf16 K3 (the tensor-core template) with one image, H/2 = 1, W/2 not a
+multiple of its 32-column tile and two stems over three images each; for
+K8/K9 one frame and odd frame counts, bin limits 1, 512, 777, 2048 and
+2049, with and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
 and the round-3 route; and one streaming block step at K = 1.
 Where there is no CUDA device every test skips. On a machine with one
 (which may lack jax, which tests/conftest.py imports):
@@ -193,6 +195,30 @@ def test_encoder_kernels_match_plain(device, dtype, n_stems, n_tiles, t, f):
         px = py
 
 
+K3_EDGES = [  # stems, images, H, W
+    (1, 1, 32, 64),  # one image
+    (1, 2, 2, 64),  # H/2 = 1
+    (1, 1, 16, 80),  # W/2 = 40, not a multiple of the 32-column tile
+    (2, 6, 18, 70),  # S = 2 over 3 images each; H/2 = 9, W/2 = 35
+]
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+@pytest.mark.parametrize("n_stems,n_img,h,w", K3_EDGES)
+def test_enc_s2_tensor_cores_at_edges(device, c, n_stems, n_img, h, w):
+    """bf16 enc2-enc4 (the tensor-core template) at ragged tiles, against
+    the plain version to 2 bf16 ulps, and bit-identical over two runs."""
+    gen = torch.Generator().manual_seed(c * 1000 + n_img * 100 + h + w)
+    x = torch.randn((n_img, h, w, c), generator=gen).to(device, torch.bfloat16)
+    ly = _layer(gen, n_stems, (2 * c, c, 5, 5), 2 * c, device)
+    skip, y = _counted("enc_s2", encoder.enc_s2, x, *ly, act="elu")
+    pskip, py = encoder.enc_s2_plain(x, *ly, act="elu")
+    _assert_close(skip, pskip, torch.bfloat16, f"enc_s2({c}) skip")
+    _assert_close(y, py, torch.bfloat16, f"enc_s2({c}) act")
+    skip2, y2 = encoder.enc_s2(x, *ly, act="elu")
+    assert torch.equal(skip, skip2) and torch.equal(y, y2)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n_stems,n_tiles", [(1, 1), (4, 3)])
 @pytest.mark.parametrize("c", [64, 32])
@@ -354,8 +380,8 @@ def test_irfft_kernel_matches_plain(device, shape, windowed):
     assert torch.equal(y, pallas_fft.irfft4096(spec, window))  # deterministic
 
 
-@pytest.mark.parametrize("frames", [1, 129])
-@pytest.mark.parametrize("bin_limit", [512, 2048])
+@pytest.mark.parametrize("frames", [1, 3, 129])  # odd: a half-full last block
+@pytest.mark.parametrize("bin_limit", [1, 512, 777, 2048, 2049])
 @pytest.mark.parametrize("windowed", [False, True])
 def test_masked_irfft_kernel_matches_plain(device, frames, bin_limit, windowed):
     spec = _spec(device, (2, frames), frames + bin_limit)

@@ -138,3 +138,70 @@ def test_encoder_wrappers_reject_bad_inputs(rng):
         encoder.enc_s2(torch.rand(3, 16, 32, 16), *args2, act="elu")
     with pytest.raises(ValueError, match=r"expected \(S, \*\(64, 32, 5, 5\)\)"):
         encoder.enc_s2(torch.rand(4, 16, 32, 32), *args2, act="elu")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core K3's host side: its weight layout and its tap-by-tap GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cin,dtype", [
+    (2, torch.float32), (2, torch.bfloat16), (16, torch.float32),
+    (16, torch.bfloat16), (32, torch.bfloat16), (64, torch.bfloat16),
+])
+def test_conv_weights_layout_round_trips(rng, cin, dtype):
+    """bf16 enc2-enc4 get (S, 25, Cout, Cin), tap kh * 5 + kw (the tensor
+    cores' B operand); fp32 layers and enc1 keep (S, 5, 5, Cin, Cout).
+    Either way the original weights come back, rounded to dtype."""
+    cout = 16 if cin == 2 else 2 * cin
+    w = torch.from_numpy(rng.standard_normal((2, cout, cin, 5, 5)).astype(np.float32))
+    wk = encoder._conv_weights(w, dtype)
+    assert wk.dtype == dtype and wk.is_contiguous()
+    if encoder._tensor_cores(cin, dtype):
+        assert wk.shape == (2, 25, cout, cin)
+        back = wk.reshape(2, 5, 5, cout, cin).permute(0, 3, 4, 1, 2)
+    else:
+        assert wk.shape == (2, 5, 5, cin, cout)
+        back = wk.permute(0, 4, 3, 1, 2)
+    assert torch.equal(back, w.to(dtype))
+    assert encoder._tensor_cores(cin, dtype) == (cin > 2 and dtype == torch.bfloat16)
+
+
+def _implicit_gemm(x, wk, b, bn_scale, bn_shift, act, bper):
+    """The tensor-core kernel's arithmetic in torch: for each of the 25 taps
+    (kh, kw), the stride-2 pixels (2 ho + kh - 1, 2 wo + kw - 1) of the
+    TF-SAME padded NHWC input (pad 1 before, 2 after) times the tap's
+    (Cout, Cin) slice of wk, summed tap by tap in float32; then the
+    epilogue. Image n uses stem n // bper's weights."""
+    n_img, h, w, _ = x.shape
+    ho, wo = h // 2, w // 2
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 2, 1, 2))
+    stem = torch.arange(n_img) // bper
+    acc = torch.zeros((n_img, ho, wo, wk.shape[2]))
+    for tap in range(25):
+        kh, kw = divmod(tap, 5)
+        a = xp[:, kh : kh + 2 * ho : 2, kw : kw + 2 * wo : 2, :]  # (N, Ho, Wo, Cin)
+        acc += torch.einsum("nhwc,noc->nhwo", a, wk[stem, tap].float())
+    skip = acc + b[stem][:, None, None]
+    z = bn_scale[stem][:, None, None] * skip + bn_shift[stem][:, None, None]
+    return skip, encoder.model.activation(z, act)
+
+
+@pytest.mark.parametrize("cin", encoder.S2_WIDTHS)
+def test_tap_by_tap_implicit_gemm_matches_plain(rng, cin):
+    """The emulated implicit GEMM over the (S, 25, Cout, Cin) layout equals
+    enc_s2_plain in float32 on bf16-rounded operands, to 1e-5 of max|plain|,
+    two stems over B = 2 images of 10 x 14 (H/2, W/2 odd)."""
+    ly = _rand_layer(rng, cin, 2 * cin)
+    w = torch.from_numpy(np.stack([ly["w"], -ly["w"]]).transpose(0, 4, 3, 1, 2).copy())
+    vec = lambda k: torch.from_numpy(np.stack([ly[k], ly[k][::-1].copy()]))
+    b, scale, shift = vec("b"), vec("bn_scale"), vec("bn_shift")
+    x = torch.from_numpy(rng.standard_normal((4, 10, 14, cin)).astype(np.float32))
+    x = x.to(torch.bfloat16).float()
+    wk = encoder._conv_weights(w, torch.bfloat16)
+    got = _implicit_gemm(x, wk, b, scale, shift, "elu", bper=2)
+    ref = encoder.enc_s2_plain(x, w.to(torch.bfloat16).float(), b, scale, shift,
+                               act="elu")
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (4, 5, 7, 2 * cin)
+        assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()

@@ -154,3 +154,78 @@ def test_transform_irfft_routes_by_length(rng):
     assert torch.equal(transform.istft(spec, cfg),
                        transform.overlap_add(frames, cfg))
     assert not any(kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# The register-radix core's host side: its tables and its pass order
+# ---------------------------------------------------------------------------
+
+
+def test_radix_pass_twiddles_match_float64():
+    """Each entry is the float64 exp rounded once to complex64 (atol 2**-24:
+    half an ulp of a component in [0.5, 1)), in [r][k] order; the kernel's
+    table is the 4096-point table followed by them."""
+    tab = kernels.radix_pass_twiddles()
+    r2, k2 = np.divmod(np.arange(256), 16)
+    r3, j3 = np.divmod(np.arange(2048), 256)
+    exact = np.concatenate([np.exp(2j * np.pi * r2 * k2 / 256),
+                            np.exp(2j * np.pi * r3 * j3 / 2048)])
+    assert tab.dtype == np.complex64 and tab.shape == (2304,)
+    np.testing.assert_allclose(tab.real, exact.real, rtol=0, atol=2.0**-24)
+    np.testing.assert_allclose(tab.imag, exact.imag, rtol=0, atol=2.0**-24)
+    full = kernels.irfft_twiddles(torch.device("cpu")).numpy()
+    assert np.array_equal(full[:2048], kernels.twiddles4096(torch.device("cpu")).numpy())
+    assert np.array_equal(full[2048:], tab)
+
+
+def _idft(v: np.ndarray) -> np.ndarray:
+    """Unnormalised inverse DFT along the last axis."""
+    m = np.arange(v.shape[-1])
+    return v @ np.exp(2j * np.pi * np.outer(m, m) / v.shape[-1])
+
+
+def _radix_model(y: np.ndarray) -> np.ndarray:
+    """csrc/irfft.cu's order of work on the masked spectrum y (F, 2049):
+    the Hermitian merge, then the three Stockham passes (radix 16, 16, 8)
+    with the pass tables, then interleave and scale by 1/4096."""
+    tab = kernels.radix_pass_twiddles().astype(np.complex128)
+    t2, t3 = tab[:256].reshape(16, 16), tab[256:].reshape(8, 256)
+    tw = np.exp(-2j * np.pi * np.arange(2048) / 4096).astype(np.complex64)
+    y = y.astype(np.complex128)
+    y[:, [0, 2048]] = y[:, [0, 2048]].real
+    k = np.arange(2048)
+    a, b = y[:, k], np.conj(y[:, 2048 - k])
+    z = (a + b) + 1j * np.conj(tw) * (a - b)  # Z[k]
+    n_frames = len(y)
+    t = np.arange(128)
+    # Pass 1 (Ns = 1): thread t takes Z[t + 128 r], writes 16 t + m.
+    v = z.reshape(n_frames, 16, 128).transpose(0, 2, 1)
+    buf = _idft(v).reshape(n_frames, 2048)
+    # Pass 2 (Ns = 16): twiddle r (t mod 16) / 256, write (t / 16) 256 + t mod 16 + 16 m.
+    v = buf.reshape(n_frames, 16, 128).transpose(0, 2, 1) * t2[:, t % 16].T
+    dst = ((t // 16) * 256 + t % 16)[:, None] + 16 * np.arange(16)
+    buf = np.empty_like(buf)
+    buf[:, dst] = _idft(v)
+    # Pass 3 (Ns = 256): items j < 256, twiddle r j / 2048, write j + 256 m.
+    v = buf.reshape(n_frames, 8, 256).transpose(0, 2, 1) * t3.T
+    z = _idft(v).transpose(0, 2, 1).reshape(n_frames, 2048)
+    out = np.empty((n_frames, 4096))
+    out[:, 0::2], out[:, 1::2] = z.real, z.imag
+    return out / 4096
+
+
+@pytest.mark.parametrize("bin_limit", [None, 1, 777, 2049])
+def test_radix_pass_order_matches_numpy_irfft(rng, bin_limit):
+    """The numpy model of the kernel's passes, unmasked (K8) and masked (K9)
+    at the narrowest, an odd and the widest bin limit, equals np.fft.irfft of
+    the masked spectrum to 1e-5 of max|x|."""
+    spec = _spec(rng, (3,))
+    if bin_limit is None:
+        y = spec
+    else:
+        gains = np.full((3, 2049), 0.25, np.float32)
+        gains[:, :bin_limit] = rng.uniform(0, 1, (3, bin_limit))
+        y = spec * gains
+    ref = np.fft.irfft(np.where(np.isin(np.arange(2049), [0, 2048]), y.real, y), n=4096)
+    got = _radix_model(y)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
