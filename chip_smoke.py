@@ -13,11 +13,13 @@ Phases, each of which raises (non-zero exit) on failure:
    (bin_limit 1536, time_step 256, 4 stems); K2-K6 (the packed U-Net) in
    float32 and in bfloat16, each on the outputs of the plain chain before
    it, with the CLI's weights but random biases and batch norms (K6 held
-   to a per-pixel bound; K3 also run twice, bit-identical, and each of its
-   layers timed beside its bound and cuDNN's bf16 convolution alone, a
-   convolution-only yardstick); K8 on the masked spectrum of one streaming
-   block of 4 streams and K9 at the 30 s overlap-2 shapes, both in float32
-   and each run twice (bit-identical).
+   to a per-pixel bound; K3, K4 and K5 also run twice, bit-identical, and
+   each of their layers timed beside its bound, the fp32 FMA floor and
+   cuDNN's bf16 convolution (K3) or transposed convolution (K4, K5) alone,
+   a convolution-only yardstick; K4 and K5 also with the tensor-core
+   template's registers, shared memory and occupancy); K8 on the masked
+   spectrum of one streaming block of 4 streams and K9 at the 30 s
+   overlap-2 shapes, both in float32 and each run twice (bit-identical).
 3. The main path through the user's entry point: the CLI separates a 30 s
    synthetic WAV into 4 stems (VST config, bf16, random full-width
    weights); the launch counts must be K1, K2, K4, K5, K6, K7 once and K3
@@ -41,9 +43,10 @@ Phases, each of which raises (non-zero exit) on failure:
 8. 4-stem separation time at 150 s and 300 s (CUDA events): realtime
    factor, marginal rate, peak device memory, a per-stage breakdown at
    300 s (K1, K2, K3 x3, mid trunk, K4, K5, K6, K7, each kernel beside its
-   plain version, each K3 layer beside its bound, the fp32 FMA floor and
-   cuDNN's convolution alone, and the canonical cuDNN U-Net), and a
-   profile of one 300 s separation (device busy time by kernel).
+   plain version, each K3, K4 and K5 layer beside its bound, the fp32 FMA
+   floor and cuDNN's (transposed) convolution alone, and the canonical
+   cuDNN U-Net), and a profile of one 300 s separation (device busy time
+   by kernel).
 9. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
    4, 16 and 64 streams, carrying the state: ms per block, the aggregate
    realtime factor, peak memory, the largest K inside the 5.944 s block
@@ -400,9 +403,15 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                 f"{worst:.3e}")
             if not worst <= 1:
                 raise AssertionError(f"{label} disagrees with its plain version")
-            if name == "enc_s2" and not all(
-                    torch.equal(a, b) for a, b in zip(got, fn(*args, **kw))):
-                raise AssertionError(f"{label} is not deterministic")
+            if name in ("enc_s2", "up4", "up5"):
+                again = fn(*args, **kw)
+                pairs = zip(got, again) if name == "enc_s2" else [(got, again)]
+                same = all(torch.equal(a, b) for a, b in pairs)
+                log(f"[{label} {name}] {str(dtype)[6:]}: two runs bit-identical: "
+                    f"{same}")
+                if not same:
+                    raise AssertionError(f"{label} is not deterministic")
+                del again
             if dtype != cfg.compute_dtype:
                 continue
             with cudnn_deterministic(False):  # time what the path runs
@@ -412,6 +421,8 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
                 if name == "enc_s2":
                     log_k3_layer(f"{label}, 30 s", args, kw, ms)
+                elif name in ("up4", "up5"):
+                    log_up_layer(f"{label}, 30 s", name, args, kw, ms)
             entry = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
                                              "plain_ms": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -485,6 +496,36 @@ def log_k3_layer(label: str, args, kw, ms: float) -> None:
         f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
         f"{100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms; "
         f"cuDNN conv2d alone (yardstick) {conv_ms:.4f} ms")
+
+
+def log_up_layer(label: str, name: str, args, kw, ms: float) -> None:
+    """One K4/K5 layer's time beside its bound, the fp32 FMA floor and
+    cuDNN's transposed convolution alone on a pre-built concat [skip, prev]
+    (bf16, channels_last, stride 2, padding 2, output_padding 1: the same
+    output size and multiply-adds, but no bias, batch norm or activation
+    and the concat built outside the timing), a convolution-only yardstick,
+    not a library call for K4/K5's function; and the tensor-core
+    template's resources (registers a thread, shared memory a block,
+    resident blocks and warps an SM)."""
+    bound = bound_entry([(name, args, kw)])
+    floor_ms = kernel_work(name, args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    skip, prev, w = args[:3]
+    x = torch.cat([skip, prev], -1).permute(0, 3, 1, 2)  # channels_last NCHW view
+    wc = w[0].to(skip.dtype).contiguous(memory_format=torch.channels_last)
+    conv_ms = cuda_ms(lambda: torch.nn.functional.conv_transpose2d(
+        x, wc, stride=2, padding=2, output_padding=1))
+    del x
+    res = ""
+    if tail._tensor_cores(skip.shape[-1], skip.dtype):
+        a = tail.up_mma_attributes(skip.shape[-1], skip.device)
+        warps = a["blocks_per_sm"] * a["threads"] // 32
+        res = (f"; up_mma_kernel {a['registers']} registers x {a['threads']} threads, "
+               f"{a['smem_bytes']} B shared, {a['blocks_per_sm']} blocks an SM "
+               f"({warps} warps, {100 * warps / 64:.1f}% occupancy)")
+    log(f"[{label}] skip {tuple(skip.shape)} {str(skip.dtype)[6:]}: kernel {ms:.4f} "
+        f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+        f"{100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms; "
+        f"cuDNN conv_transpose2d alone (yardstick) {conv_ms:.4f} ms{res}")
 
 
 @contextlib.contextmanager
@@ -706,17 +747,25 @@ CONV_KEYS = ("conv", "cudnn", "dgrad", "wgrad", "implicit", "xmma", "gemm")
 def library_conv_kernels(fn, keys=CONV_KEYS) -> collections.Counter:
     """Device kernels of fn() that are convolutions from a library (cuDNN,
     CUTLASS through cuDNN), or whose names hold one of `keys`, by name and
-    count; the port's own kernels (namespace spleeterrt) are not counted."""
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        fn()
-        torch.cuda.synchronize()
+    count; the port's own kernels (namespace spleeterrt) are not counted.
+    A profile that caught no device kernel at all measured nothing and is
+    taken again, three times at most."""
+    for attempt in range(3):
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        log(f"[profile] capture {attempt + 1} held no device kernel; again")
+    else:
+        raise AssertionError("the profiler caught no device kernel in three tries")
     return collections.Counter(
-        e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and "spleeterrt" not in e.name
-        and any(k in e.name.lower() for k in keys)
+        name for name in names
+        if "spleeterrt" not in name and any(k in name.lower() for k in keys)
     )
 
 
@@ -837,14 +886,17 @@ def phase_timing(device) -> None:
         "K1 plain": cuda_ms(lambda: stft_fused.stft4096_plain(*k1_args), 10),
     }
     calls, trunk_args = unet_calls(stacked, mag, cfg.compute_dtype)
-    for i, (label, _, fn, plain, args, kw) in enumerate(calls):
+    for i, (label, name, fn, plain, args, kw) in enumerate(calls):
         if i == 4:  # between enc4 and up4, in dataflow order
             stages["mid trunk (cuDNN, 4 stems)"] = cuda_ms(
                 lambda: model.mid_trunk(*trunk_args), 5, 1)
         stages[label] = cuda_ms(lambda: fn(*args, **kw), 5, 1)
         stages[f"{label} plain"] = cuda_ms(lambda: plain(*args, **kw), 3, 1)
-        if label.startswith("K3"):
+        if name == "enc_s2":
             log_k3_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw,
+                         stages[label])
+        elif name in ("up4", "up5"):
+            log_up_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", name, args, kw,
                          stages[label])
     del calls, trunk_args
     stages["K7 masked_istft4096"] = cuda_ms(

@@ -52,6 +52,7 @@
 //   split by parity, so the stride-2 taps of 32 neighbouring lanes are 32
 //   consecutive words) and 4 broadcast 16-byte loads of the weights. Input
 //   channels are staged CC at a time.
+#include "mma.cuh"
 #include "unet.cuh"
 
 namespace spleeterrt {
@@ -233,47 +234,6 @@ struct MmaTile {
   static constexpr size_t SMEM = 16 * static_cast<size_t>(PATCH + kStages * TAP);
   static_assert(NT % 2 == 0 && KS >= 1, "tile shape");
 };
-
-// Chunk L of a buffer whose rows (pixels, or a weight's output channels)
-// are CPP chunks long: the low three bits are XORed with (L / 8) mod CPP,
-// which permutes each 128-byte line and puts the same chunk of any eight
-// consecutive rows in eight different bank groups.
-template <int CPP>
-__device__ __forceinline__ int swz(int L) {
-  return L ^ ((L >> 3) & (CPP - 1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // x: NHWC bf16 (16-byte aligned). wk: [S][25][COUT][CIN] bf16. epi:
 // [S][3][COUT] float. skip, actv: [n_img][H/2][W/2][COUT] bf16.

@@ -15,6 +15,17 @@ weight rows [:C] take the skip). Sources are NHWC (S * B, H, W, C) in the
 compute dtype; image s * B + b uses stem s's weights. The head writes the
 masks (S, B, 2, T, F) float32, the masked iSTFT's input layout.
 
+up4/up5 follow one fixed rule on dtype (`_tensor_cores`, the twin of the
+switch in csrc/tail.cu): bf16 runs an implicit GEMM on the tensor cores
+(Hopper's wgmma, bf16 operands, float32 sums; weights (S, 25, C/2, 2C)
+from `_up_weights`, taps in `_UP_TAPS` order), as the TPU kernels ran on
+their matrix unit; float32 runs an fp32 FMA template, the parity path,
+which TF32 would not hold to its 1e-5 bound. What bounds them on an H100
+at 300 s: bf16 up4 the tensor cores' operations (0.26 ms), bf16 up5 its
+bytes (0.38 ms); the float32 path the FMA units (3.83 ms a layer). A bf16
+source that is not 16-byte aligned raises (the kernel copies 16 bytes at
+a time).
+
 On a CPU tensor each wrapper returns its plain version (`*_plain`, torch
 convolutions in float32 on the same rounded operands); on a CUDA tensor it
 launches the kernel or raises.
@@ -45,17 +56,65 @@ UP_WIDTHS = {64: "up4", 32: "up5"}  # channels per source -> kernel name
 HEAD_WIDTH = 16  # channels per head source (skip1, up5out)
 
 
+def _up_taps() -> tuple[int, ...]:
+    """The tensor-core template's tap order, kh * 5 + kw: output row 2h' +
+    dp reads input row h' + dh through tap kh = 1 - 2 dh + dp (columns the
+    same); the shifts (dh, dw) in row-major order over {-1, 0, 1}^2, and
+    within a shift the parities 2 dp + dq that read it in the kernel's
+    accumulator order 0, 1, 3, 2 (csrc/tail.cu::up_parity), in which they
+    are one run."""
+    taps = []
+    for dh in (-1, 0, 1):
+        for dw in (-1, 0, 1):
+            for p in (0, 1, 3, 2):
+                dp, dq = divmod(p, 2)
+                kh, kw = 1 - 2 * dh + dp, 1 - 2 * dw + dq
+                if 0 <= kh < 5 and 0 <= kw < 5:
+                    taps.append(5 * kh + kw)
+    return tuple(taps)
+
+
+_UP_TAPS = _up_taps()
+
+
+@functools.cache
+def _up_tap_index(device: torch.device) -> torch.Tensor:
+    """_UP_TAPS as an index tensor on `device`, made once: a list index
+    would copy it from pageable host memory at every launch, which waits
+    for the stream to drain."""
+    return torch.tensor(_UP_TAPS, device=device)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load()
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.spleeterrt_up_tconv.argtypes = [i, i, p, p, p, p, i, i, i, i, i, p, p]
     lib.spleeterrt_up_tconv.restype = i
+    lib.spleeterrt_up_mma_attrs.argtypes = [i, ctypes.POINTER(i)]
+    lib.spleeterrt_up_mma_attrs.restype = i
     lib.spleeterrt_head.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p, p]
     lib.spleeterrt_head.restype = i
     lib.spleeterrt_mask_head.argtypes = [i, p, p, p, p, i, i, i, i, i, p, p]
     lib.spleeterrt_mask_head.restype = i
     return lib
+
+
+def _tensor_cores(c: int, dtype) -> bool:
+    """The fixed rule of csrc/tail.cu: bf16 up4/up5 (C = 64, 32 channels a
+    source) run the tensor-core template, float32 the FMA template."""
+    return dtype == torch.bfloat16 and c in UP_WIDTHS
+
+
+def _up_weights(w: torch.Tensor, dtype) -> torch.Tensor:
+    """(S, 2C, C/2, 5, 5) -> the kernel's layout in dtype: (S, 25, C/2, 2C)
+    for the tensor cores (one tap's B operand, K contiguous, taps in
+    `_UP_TAPS` order), else (S, 2C, 5, 5, C/2)."""
+    s, cin, cout = w.shape[:3]
+    if _tensor_cores(cin // 2, dtype):
+        taps = w.to(dtype).permute(0, 3, 4, 2, 1).reshape(s, 25, cout, cin)
+        return taps.index_select(1, _up_tap_index(w.device))
+    return w.to(dtype).permute(0, 1, 3, 4, 2).contiguous()
 
 
 def _check_sources(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
@@ -111,10 +170,12 @@ def up_shallow(
         return up_shallow_plain(skip, prev, w, b, bn_scale, bn_shift, act=act)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if _tensor_cores(c, skip.dtype) and (skip.data_ptr() % 16 or prev.data_ptr() % 16):
+        raise ValueError("skip and prev must be 16-byte aligned")  # cp.async
     out = torch.empty((sb, 2 * h, 2 * wd, c // 2), dtype=skip.dtype, device=dev)
     # Named, so their memory is not handed to the next allocation before
-    # the kernel has read it. (S, Cin, Cout, 5, 5) -> (S, Cin, 5, 5, Cout).
-    wk = w.to(skip.dtype).permute(0, 1, 3, 4, 2).contiguous()
+    # the kernel has read it.
+    wk = _up_weights(w, skip.dtype)
     epi = epilogue_table(b, bn_scale, bn_shift)
     with torch.cuda.device(dev):
         launch(
@@ -124,6 +185,19 @@ def up_shallow(
         )
     count_launch(UP_WIDTHS[c])
     return out
+
+
+def up_mma_attributes(c: int, device: torch.device) -> dict[str, int]:
+    """The bf16 tensor-core template's resources for C = 64 (up4) or 32
+    (up5) channels a source, as the CUDA runtime reports them on `device`:
+    registers a thread, dynamic shared memory a block (bytes), threads a
+    block and resident blocks an SM."""
+    if c not in UP_WIDTHS:
+        raise ValueError(f"c must be one of {tuple(UP_WIDTHS)}, got {c}")
+    attrs = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        launch(_lib().spleeterrt_up_mma_attrs, c, attrs)
+    return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))
 
 
 def up6_plain(skip1, up5, w6, b6, bn_scale6, bn_shift6, *, act):

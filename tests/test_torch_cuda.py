@@ -5,8 +5,11 @@ add edge shapes: for K1/K7 lengths that end mid-frame, one and three rows,
 the narrowest and widest bin limits, spans that end mid-block; for K2-K6
 the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
 one tile and an odd tile count, one stem and four, both compute dtypes;
-bf16 K3 (the tensor-core template) with one image, H/2 = 1, W/2 not a
-multiple of its 32-column tile and two stems over three images each; for
+bf16 K3 and bf16 K4/K5 (the tensor-core templates) with one image, an
+output or input height of 1, widths that are not a multiple of the
+32-column tile (K4/K5 also W = 8) and two stems over three images each,
+each run twice (bit-identical), and K4/K5 refusing a source off 16-byte
+alignment; for
 K8/K9 one frame and odd frame counts, bin limits 1, 512, 777, 2048 and
 2049, with and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
 and the round-3 route; and one streaming block step at K = 1.
@@ -217,6 +220,47 @@ def test_enc_s2_tensor_cores_at_edges(device, c, n_stems, n_img, h, w):
     _assert_close(y, py, torch.bfloat16, f"enc_s2({c}) act")
     skip2, y2 = encoder.enc_s2(x, *ly, act="elu")
     assert torch.equal(skip, skip2) and torch.equal(y, y2)
+
+
+UP_EDGES = [  # stems, images, H, W (input resolution)
+    (1, 1, 16, 32),  # one image
+    (1, 2, 1, 48),  # H = 1
+    (1, 1, 6, 8),  # W = 8, a quarter of the 32-column tile
+    (1, 2, 10, 40),  # W = 40, not a multiple of the tile
+    (2, 6, 9, 24),  # S = 2 over 3 images each, odd H
+]
+
+
+@pytest.mark.parametrize("c", [64, 32])
+@pytest.mark.parametrize("n_stems,n_img,h,w", UP_EDGES)
+def test_up_shallow_tensor_cores_at_edges(device, c, n_stems, n_img, h, w):
+    """bf16 up4/up5 (the tensor-core template) at ragged tiles, against the
+    plain version to 2 bf16 ulps, and bit-identical over two runs."""
+    gen = torch.Generator().manual_seed(c * 1000 + n_img * 100 + h + w)
+    skip, prev = (torch.randn((n_img, h, w, c), generator=gen).to(device, torch.bfloat16)
+                  for _ in range(2))
+    ly = _layer(gen, n_stems, (2 * c, c // 2, 5, 5), c // 2, device)
+    got = _counted(tail.UP_WIDTHS[c], tail.up_shallow, skip, prev, *ly, act="elu")
+    _assert_close(got, tail.up_shallow_plain(skip, prev, *ly, act="elu"),
+                  torch.bfloat16, tail.UP_WIDTHS[c])
+    assert torch.equal(got, tail.up_shallow(skip, prev, *ly, act="elu"))
+
+
+@pytest.mark.parametrize("misaligned", ["skip", "prev"])
+def test_up_shallow_tensor_cores_refuse_misaligned_sources(device, misaligned):
+    """The tensor-core template copies 16 bytes at a time: a bf16 source
+    one element off 16-byte alignment raises, and nothing launches."""
+    gen = torch.Generator().manual_seed(7)
+    shape = (1, 8, 16, 64)
+    buf = torch.randn((2, math.prod(shape) + 8), generator=gen).to(device, torch.bfloat16)
+    srcs = {"skip": buf[0, :math.prod(shape)].view(shape),
+            "prev": buf[1, :math.prod(shape)].view(shape)}
+    srcs[misaligned] = buf[0 if misaligned == "skip" else 1, 1:1 + math.prod(shape)].view(shape)
+    ly = _layer(gen, 1, (128, 32, 5, 5), 32, device)
+    before = kernels.launch_counts()["up4"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tail.up_shallow(srcs["skip"], srcs["prev"], *ly, act="elu")
+    assert kernels.launch_counts()["up4"] == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -330,3 +330,101 @@ def test_tail_wrappers_reject_bad_inputs(rng):
     with pytest.raises(ValueError, match="16 channels"):
         tail.head(torch.rand(2, 32, 32, 8), torch.rand(2, 32, 32, 8),
                   w6, b6, s6, h6, w7, b7, act="elu")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core K4/K5's host side: its weight layout and its per-parity GEMM
+# ---------------------------------------------------------------------------
+
+
+def _parity(k):
+    """Tap k of a 5-tap axis -> (output parity, input shift): output 2h' +
+    dp reads input h' + dh through k = 1 - 2 dh + dp (csrc/tail.cu)."""
+    return (0, (1 - k) // 2) if k % 2 else (1, (2 - k) // 2)
+
+
+@pytest.mark.parametrize("c,dtype", [
+    (64, torch.float32), (64, torch.bfloat16), (32, torch.float32),
+    (32, torch.bfloat16),
+])
+def test_up_weights_layout_round_trips(rng, c, dtype):
+    """bf16 up4/up5 get (S, 25, C/2, 2C), taps in _UP_TAPS order (the
+    tensor cores' B operand, K contiguous); float32 keeps (S, 2C, 5, 5,
+    C/2). Either way the original weights come back, rounded to dtype."""
+    w = torch.from_numpy(rng.standard_normal((2, 2 * c, c // 2, 5, 5)).astype(np.float32))
+    wk = tail._up_weights(w, dtype)
+    assert wk.dtype == dtype and wk.is_contiguous()
+    if tail._tensor_cores(c, dtype):
+        assert wk.shape == (2, 25, c // 2, 2 * c)
+        back = torch.empty((2, 25, c // 2, 2 * c), dtype=dtype)
+        back[:, list(tail._UP_TAPS)] = wk
+        back = back.reshape(2, 5, 5, c // 2, 2 * c).permute(0, 4, 3, 1, 2)
+    else:
+        assert wk.shape == (2, 2 * c, 5, 5, c // 2)
+        back = wk.permute(0, 1, 4, 2, 3)
+    assert torch.equal(back, w.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_tensor_cores_rule(dtype):
+    """The tensor-core template takes exactly bf16 with C in {64, 32}."""
+    for c in (16, 32, 64, 128):
+        assert tail._tensor_cores(c, dtype) == (dtype == torch.bfloat16 and c in (64, 32))
+
+
+def test_up_taps_walk_shifts_in_order():
+    """_UP_TAPS holds each of the 25 taps once, grouped by input shift
+    (dh, dw) in row-major order, within a shift the parities in the
+    accumulator slot order 0, 1, 3, 2: the order the tensor-core kernels
+    walk them (csrc/tail.cu::up_tap). Every shift's parities are one run of
+    slots, so one wgmma covers them."""
+    assert sorted(tail._UP_TAPS) == list(range(25))
+    slot = {0: 0, 1: 1, 3: 2, 2: 3}  # parity 2 dp + dq -> slot
+    keys = []
+    for tap in tail._UP_TAPS:
+        (dp, dh), (dq, dw) = _parity(tap // 5), _parity(tap % 5)
+        keys.append((dh, dw, slot[2 * dp + dq]))
+    assert keys == sorted(keys)
+    for shift in sorted({k[:2] for k in keys}):
+        slots = [k[2] for k in keys if k[:2] == shift]
+        assert slots == list(range(slots[0], slots[0] + len(slots)))
+        assert len(slots) in (1, 2, 4)
+    shifts = [k[:2] for k in keys]
+    assert [shifts.count(s) for s in sorted(set(shifts))] == [4, 4, 2, 4, 4, 2, 2, 2, 1]
+
+
+def _subpixel_gemm(skip, prev, wk, b, bn_scale, bn_shift, act, bper):
+    """The tensor-core kernel's arithmetic in torch: each output parity
+    (dp, dq) is a GEMM over its taps, the tap's A operand the concat [skip,
+    prev] (K: the skip's channels, then prev's; zeros outside the image)
+    shifted by (dh, dw), its B operand the tap's (C/2, 2C) slice of wk,
+    summed in float32; then the epilogue, activation before batch norm.
+    Image n uses stem n // bper's weights."""
+    n_img, h, w, _ = skip.shape
+    x = F.pad(torch.cat([skip, prev], -1), (0, 0, 1, 1, 1, 1))
+    stem = torch.arange(n_img) // bper
+    acc = torch.zeros((n_img, 2, 2, h, w, wk.shape[2]))  # [n][dp][dq]
+    for t, tap in enumerate(tail._UP_TAPS):
+        (dp, dh), (dq, dw) = _parity(tap // 5), _parity(tap % 5)
+        a = x[:, 1 + dh : 1 + dh + h, 1 + dw : 1 + dw + w]  # (N, H, W, 2C)
+        acc[:, dp, dq] += torch.einsum("nhwk,nok->nhwo", a, wk[stem, t].float())
+    vec = lambda v: v[stem][:, None, None, None, None]
+    y = vec(bn_scale) * model.activation(acc + vec(b), act) + vec(bn_shift)
+    return y.permute(0, 3, 1, 4, 2, 5).reshape(n_img, 2 * h, 2 * w, -1)
+
+
+@pytest.mark.parametrize("c,act", [(64, "elu"), (32, "relu")])
+def test_per_parity_gemm_matches_plain(rng, c, act):
+    """The emulated per-parity GEMM over the (S, 25, C/2, 2C) layout equals
+    up_shallow_plain in float32 on bf16-rounded operands, to 1e-5 of
+    max|plain|: up4 and up5, two stems over B = 2 images of 5 x 7."""
+    lys = [_rand_layer(rng, 2 * c, c // 2) for _ in range(2)]
+    w, b, scale, shift = _stack(lys)
+    skip, prev = (_t(rng.standard_normal((4, 5, 7, c)).astype(np.float32))
+                  .to(torch.bfloat16).float() for _ in range(2))
+    wk = tail._up_weights(w, torch.bfloat16)
+    got = _subpixel_gemm(skip, prev, wk, b, scale, shift, act, bper=2)
+    ref = tail.up_shallow_plain(skip, prev, w.to(torch.bfloat16).float(), b,
+                                scale, shift, act=act)
+    assert got.shape == ref.shape == (4, 10, 14, c // 2)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
