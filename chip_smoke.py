@@ -10,16 +10,17 @@ Phases, each of which raises (non-zero exit) on failure:
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes of the path that runs it, with the max error beside its bound
    and both times: K1 and K7 in float32 at the 30 s offline shapes
-   (bin_limit 1536, time_step 256, 4 stems); K2-K6 (the packed U-Net) in
-   float32 and in bfloat16, each on the outputs of the plain chain before
-   it, with the CLI's weights but random biases and batch norms (K6 held
-   to a per-pixel bound; K3, K4 and K5 also run twice, bit-identical, and
-   each of their layers timed beside its bound, the fp32 FMA floor and
-   cuDNN's bf16 convolution (K3) or transposed convolution (K4, K5) alone,
-   a convolution-only yardstick; K4 and K5 also with the tensor-core
-   template's registers, shared memory and occupancy); K8 on the masked
-   spectrum of one streaming block of 4 streams and K9 at the 30 s
-   overlap-2 shapes, both in float32 and each run twice (bit-identical).
+   (bin_limit 1536, time_step 256, 4 stems; K7 run twice, bit-identical);
+   K2-K6 (the packed U-Net) in float32 and in bfloat16, each on the
+   outputs of the plain chain before it, with the CLI's weights but random
+   biases and batch norms (K6 held to a per-pixel bound; K3, K4, K5 and K6
+   also run twice, bit-identical, and each K3, K4 and K5 layer timed
+   beside its bound, the fp32 FMA floor and cuDNN's bf16 convolution (K3)
+   or transposed convolution (K4, K5) alone, a convolution-only
+   yardstick; K4 and K5 also with the tensor-core template's registers,
+   shared memory and occupancy); K8 on the masked spectrum of one
+   streaming block of 4 streams and K9 at the 30 s overlap-2 shapes, both
+   in float32 and each run twice (bit-identical).
 3. The main path through the user's entry point: the CLI separates a 30 s
    synthetic WAV into 4 stems (VST config, bf16, random full-width
    weights); the launch counts must be K1, K2, K4, K5, K6, K7 once and K3
@@ -44,7 +45,10 @@ Phases, each of which raises (non-zero exit) on failure:
    factor, marginal rate, peak device memory, a per-stage breakdown at
    300 s (K1, K2, K3 x3, mid trunk, K4, K5, K6, K7, each kernel beside its
    plain version, each K3, K4 and K5 layer beside its bound, the fp32 FMA
-   floor and cuDNN's (transposed) convolution alone, and the canonical
+   floor and cuDNN's (transposed) convolution alone, K6 beside its bound
+   and fp32 FMA floor, K7 beside its bound and torch.fft.irfft over the
+   pre-masked spectrum alone (an FFT-only yardstick), K4-K7 with their
+   templates' registers, shared memory and occupancy, and the canonical
    cuDNN U-Net), and a profile of one 300 s separation (device busy time
    by kernel).
 9. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
@@ -403,7 +407,7 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                 f"{worst:.3e}")
             if not worst <= 1:
                 raise AssertionError(f"{label} disagrees with its plain version")
-            if name in ("enc_s2", "up4", "up5"):
+            if name in ("enc_s2", "up4", "up5", "head"):
                 again = fn(*args, **kw)
                 pairs = zip(got, again) if name == "enc_s2" else [(got, again)]
                 same = all(torch.equal(a, b) for a, b in pairs)
@@ -517,15 +521,54 @@ def log_up_layer(label: str, name: str, args, kw, ms: float) -> None:
     del x
     res = ""
     if tail._tensor_cores(skip.shape[-1], skip.dtype):
-        a = tail.up_mma_attributes(skip.shape[-1], skip.device)
-        warps = a["blocks_per_sm"] * a["threads"] // 32
-        res = (f"; up_mma_kernel {a['registers']} registers x {a['threads']} threads, "
-               f"{a['smem_bytes']} B shared, {a['blocks_per_sm']} blocks an SM "
-               f"({warps} warps, {100 * warps / 64:.1f}% occupancy)")
+        res = (f"; up_mma_kernel "
+               f"{resources(tail.up_mma_attributes(skip.shape[-1], skip.device))}")
     log(f"[{label}] skip {tuple(skip.shape)} {str(skip.dtype)[6:]}: kernel {ms:.4f} "
         f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
         f"{100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms; "
         f"cuDNN conv_transpose2d alone (yardstick) {conv_ms:.4f} ms{res}")
+
+
+def resources(a: dict) -> str:
+    """A template's registers, shared memory and resident blocks an SM,
+    as the CUDA runtime reports them."""
+    warps = a["blocks_per_sm"] * a["threads"] // 32
+    return (f"{a['registers']} registers x {a['threads']} threads, "
+            f"{a['smem_bytes']} B shared, {a['blocks_per_sm']} blocks an SM "
+            f"({warps} warps, {100 * warps / 64:.1f}% occupancy)")
+
+
+def log_head(label: str, args, kw, ms: float) -> None:
+    """K6's time beside its bound and the fp32 FMA floor (its multiply-adds
+    on CUDA cores at 67 TFLOP/s), and in bf16 the tensor-core template's
+    resources."""
+    bound = bound_entry([("head", args, kw)])
+    floor_ms = kernel_work("head", args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    src = args[0]
+    res = ""
+    if tail._head_tensor_cores(src.dtype):
+        res = f"; head_mma_kernel {resources(tail.head_mma_attributes(src.device))}"
+    log(f"[{label}] skip1 {tuple(src.shape)} {str(src.dtype)[6:]}: kernel {ms:.4f} "
+        f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+        f"{100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms{res}")
+
+
+def log_istft(label: str, args, ms: float) -> None:
+    """K7's time beside its bound, torch.fft.irfft over the pre-masked
+    (S, rows, n_frames, 2049) spectrum alone (cuFFT; an FFT-only yardstick,
+    with no mask, window or overlap-add, not a library call for K7's
+    function), and its resources."""
+    bound = bound_entry([("masked_istft4096", args, {})])
+    spec, masks, out_band, _, n_frames = args
+    y = stft_fused.masked_bins(spec, masks, out_band, n_frames)
+    fft_ms = cuda_ms(lambda: torch.fft.irfft(y, n=4096), 5, 1)
+    s, rows = y.shape[:2]
+    del y
+    log(f"[{label}] {s} stems x {rows} rows x {n_frames} frames: kernel {ms:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+        f"{100 * bound['bound_ms'] / ms:.1f}%; torch.fft.irfft of the masked "
+        f"spectrum alone (yardstick) {fft_ms:.4f} ms; run {stft_fused.RUN_HOPS} "
+        f"hops, {resources(stft_fused.istft_attributes(spec.device))}")
 
 
 @contextlib.contextmanager
@@ -898,11 +941,15 @@ def phase_timing(device) -> None:
         elif name in ("up4", "up5"):
             log_up_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", name, args, kw,
                          stages[label])
+        elif name == "head":
+            log_head(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw, stages[label])
     del calls, trunk_args
     stages["K7 masked_istft4096"] = cuda_ms(
         lambda: stft_fused.masked_istft4096(*k7_args), 10)
     stages["K7 plain"] = cuda_ms(
         lambda: stft_fused.masked_istft4096_plain(*k7_args), 10)
+    log_istft(f"K7 masked_istft4096, {BENCH_SECONDS[-1]:.0f} s", k7_args,
+              stages["K7 masked_istft4096"])
     stages["U-Net x4 stems, packed (K2-K6 + mid trunk)"] = cuda_ms(
         lambda: model.multi_stem_masks(stacked, mag, STEM_MODE_4,
                                        cfg.compute_dtype, cfg.sigmoid), 5, 1)

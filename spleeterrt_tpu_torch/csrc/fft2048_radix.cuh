@@ -1,5 +1,8 @@
 // A register-resident, mixed-radix 2048-point complex inverse FFT for one
-// group of 128 threads (four warps), used by irfft.cu (K8, K9).
+// group of 128 threads (four warps), and the masked Hermitian merge that
+// feeds it: the core of every inverse kernel, istft.cu (K7) and irfft.cu
+// (K8, K9). The forward STFT (stft.cu, K1) keeps the radix-2 core of
+// fft2048.cuh.
 //
 // 2048 = 16 * 16 * 8, in three self-sorting (Stockham) passes. Pass p
 // with radix R after passes whose radices multiply to Ns computes, for each
@@ -44,6 +47,36 @@ static __device__ __forceinline__ float2 times_i(float2 a) {
 }
 
 static __device__ __forceinline__ int radix_pad(int i) { return i + (i >> 4); }
+
+// Bin k of the masked spectrum: X[k] times m[k] below bin_limit and
+// out_band from it on, with the imaginary parts of DC and Nyquist dropped
+// (irfft semantics). bin_limit 0 with out_band 1 gives X unmasked, exactly.
+static __device__ __forceinline__ float2 masked_bin(const float2* __restrict__ X,
+                                                    const float* __restrict__ m,
+                                                    float out_band,
+                                                    int bin_limit, int k) {
+  float2 v = X[k];
+  const float g = k < bin_limit ? m[k] : out_band;
+  v.x *= g;
+  v.y = (k == 0 || k == kHalf) ? 0.f : v.y * g;
+  return v;
+}
+
+// Bin k < 2048 of the 2048-point complex input merged from the masked
+// Hermitian half-spectrum Y (masked_bin of X):
+// Z[k] = (Y[k] + conj Y[2048-k]) + i conj(W^k) (Y[k] - conj Y[2048-k]),
+// whose unnormalised inverse FFT is N (y[2n] + i y[2n+1]).
+static __device__ __forceinline__ float2 merged_bin(
+    const float2* __restrict__ X, const float* __restrict__ m, float out_band,
+    int bin_limit, const float2* __restrict__ tw, int k) {
+  const float2 a = masked_bin(X, m, out_band, bin_limit, k);
+  const float2 c = masked_bin(X, m, out_band, bin_limit, kHalf - k);
+  const float2 b = make_float2(c.x, -c.y);
+  float2 w = __ldg(&tw[k]);
+  w.y = -w.y;
+  const float2 t = cmul(w, make_float2(a.x - b.x, a.y - b.y));
+  return make_float2(a.x + b.x - t.y, a.y + b.y + t.x);
+}
 
 // exp(+2 pi i p / 16); p is a constant once the callers' loops unroll.
 static __device__ __forceinline__ float2 w16(int p) {

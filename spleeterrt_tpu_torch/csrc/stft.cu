@@ -51,7 +51,7 @@ stft4096_kernel(const float* __restrict__ audio, long long data_size,
     buf[bitrev11(n)] = make_float2(a, b);
   }
   __syncthreads();
-  fft2048<false>(buf, tw);
+  fft2048(buf, tw);
 
   // Split Z = FFT(x_even + i x_odd) into X[k] = E[k] + W^k O[k], with
   // E[k] = (Z[k] + conj Z[2048-k]) / 2 and O[k] = (Z[k] - conj Z[2048-k]) / 2i.

@@ -14,6 +14,9 @@ the compute dtype; image s * B + b uses stem s's weights. This is K6's
 function (kernels/tail.py::head) with one source instead of two, so both
 are one kernel template: K10 reads channels [0, 16) at x and [16, 32) at
 x + 16 with a channel stride of 32, and x is never split into two copies.
+K6's fixed rule holds (tail._head_tensor_cores): bf16 runs up6 on the
+tensor cores, float32 on the FMA template; a bf16 x that is not 16-byte
+aligned raises.
 The output (S * B, 2, T, F) float32 is channel first, which for one track
 is the masked iSTFT's mask layout (S, n_tiles, 2, T, F).
 
@@ -82,6 +85,7 @@ def mask_head(
         return mask_head_plain(x, w6, b6, bn_scale6, bn_shift6, w7, b7, act=act)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    tail.check_head_alignment(x.dtype, x)  # x + 16 is then 32 bytes further
     masks = torch.empty((sb, 2, 2 * h, 2 * wd), dtype=torch.float32, device=dev)
     w6k, w7k, scal = tail.head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7,
                                         x.dtype)

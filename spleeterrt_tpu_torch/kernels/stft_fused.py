@@ -3,11 +3,20 @@ versions and launch counts.
 
 Two kernels written for Hopper in CUDA C++ (csrc/stft.cu, csrc/istft.cu;
 built by kernels/_build.py) replace the reference package's Pallas kernels
-spleeterrt_tpu/kernels/stft_fused.py::_stft_kernel and ::_mistft_kernel.
-They compute what those compute, not how: the spectrum is stored as plain
-complex bins (rows, frames, 2049), the magnitude is written straight into
-the U-Net's NCHW tiles, and the masks are read in the layout the U-Net
-emits, (S, n_tiles, rows, time_step, bin_limit).
+spleeterrt_tpu/kernels/stft_fused.py::_stft_kernel (K1) and
+::_mistft_kernel (K7). They compute what those compute, not how: the
+spectrum is stored as plain complex bins (rows, frames, 2049), the
+magnitude is written straight into the U-Net's NCHW tiles, and the masks
+are read in the layout the U-Net emits, (S, n_tiles, rows, time_step,
+bin_limit).
+
+K1 runs the radix-2 FFT in shared memory (csrc/fft2048.cuh). K7 runs the
+register-radix inverse FFT of K8/K9 (csrc/fft2048_radix.cuh, twiddles
+`kernels.irfft_twiddles`) and overlap-adds in registers: a 128-thread
+group walks RUN_HOPS output hops of one (stem, row) with a three-frame
+carry, and a block holds ISTFT_GROUPS groups (both chosen by
+`python -m spleeterrt_tpu_torch.kernels.sweep_ends` on the card). Both
+kernels are float32 throughout, so neither has a rule on dtype.
 
 Each wrapper checks device, dtype, shape and contiguity. A tensor on the
 CPU goes to the plain version (`*_plain`, torch.fft) beside it; a CUDA
@@ -28,6 +37,7 @@ from spleeterrt_tpu_torch.kernels import (
     _build,
     check_tensor as _check,
     count_launch,
+    irfft_twiddles,
     launch as _launch,
     stream_of,
     twiddles4096,
@@ -36,6 +46,10 @@ from spleeterrt_tpu_torch.kernels import (
 N = 4096
 HOP = 1024  # the reference's only hop (Executable/stftFix.h:14-18)
 N_BINS = N // 2 + 1
+# K7's shape, chosen by kernels/sweep_ends.py on the card: output hops a
+# 128-thread group walks (a multiple of 4), and groups a block (1 to 4).
+RUN_HOPS = 32
+ISTFT_GROUPS = 2
 
 
 @functools.cache
@@ -45,9 +59,11 @@ def _lib() -> ctypes.CDLL:
     lib.spleeterrt_stft4096.argtypes = [p, ll, ll, p, p, i, i, i, i, p, p, p]
     lib.spleeterrt_stft4096.restype = i
     lib.spleeterrt_masked_istft4096.argtypes = [
-        p, p, p, p, p, i, ll, i, i, i, i, i, p, p,
+        p, p, p, p, p, i, ll, i, i, i, i, i, i, i, p, p,
     ]
     lib.spleeterrt_masked_istft4096.restype = i
+    lib.spleeterrt_masked_istft4096_attrs.argtypes = [i, ctypes.POINTER(i)]
+    lib.spleeterrt_masked_istft4096_attrs.restype = i
     return lib
 
 
@@ -126,17 +142,26 @@ def stft4096(
 # ---------------------------------------------------------------------------
 
 
+def masked_bins(
+    spec: torch.Tensor, masks: torch.Tensor, out_band: torch.Tensor, n_frames: int,
+) -> torch.Tensor:
+    """The spectrum K7 transforms, (S, rows, n_frames, 2049): frame f of
+    each row times masks[s, f // time_step, row, f % time_step] in band
+    and out_band[s] above it."""
+    s, nt, rows, t, f = masks.shape
+    m = masks.transpose(1, 2).reshape(s, rows, nt * t, f)[:, :, :n_frames]
+    x = spec[:, :n_frames]
+    return torch.cat(
+        [x[..., :f] * m, x[..., f:] * out_band[:, None, None, None]], dim=-1
+    )
+
+
 def masked_istft4096_plain(
     spec: torch.Tensor, masks: torch.Tensor, out_band: torch.Tensor,
     window: torch.Tensor, n_frames: int,
 ) -> torch.Tensor:
     """Plain version of :func:`masked_istft4096` (torch.fft)."""
-    s, nt, rows, t, f = masks.shape
-    m = masks.transpose(1, 2).reshape(s, rows, nt * t, f)[:, :, :n_frames]
-    x = spec[:, :n_frames]
-    y = torch.cat(
-        [x[..., :f] * m, x[..., f:] * out_band[:, None, None, None]], dim=-1
-    )
+    y = masked_bins(spec, masks, out_band, n_frames)
     # irfft semantics: the imaginary parts of DC and Nyquist are dropped.
     y[..., 0].imag.zero_()
     y[..., -1].imag.zero_()
@@ -171,6 +196,8 @@ def masked_istft4096(
         return masked_istft4096_plain(spec, masks, out_band, window, n_frames)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if window.data_ptr() % 8:
+        raise ValueError("window must be 8-byte aligned")  # float2 loads
     out = torch.empty(
         (s, rows, n_frames * HOP + N - HOP), dtype=torch.float32, device=dev
     )
@@ -178,8 +205,21 @@ def masked_istft4096(
         _launch(
             _lib().spleeterrt_masked_istft4096,
             spec.data_ptr(), masks.data_ptr(), out_band.data_ptr(),
-            window.data_ptr(), twiddles4096(dev).data_ptr(), s, rows, n_frames,
-            n_spec, nt, t, f, out.data_ptr(), stream_of(dev),
+            window.data_ptr(), irfft_twiddles(dev).data_ptr(), s, rows, n_frames,
+            n_spec, nt, t, f, RUN_HOPS, ISTFT_GROUPS, out.data_ptr(),
+            stream_of(dev),
         )
     count_launch("masked_istft4096")
     return out
+
+
+def istft_attributes(device: torch.device, groups: int | None = None) -> dict[str, int]:
+    """K7's resources with `groups` 128-thread groups a block (default
+    ISTFT_GROUPS), as the CUDA runtime reports them on `device`: registers
+    a thread, dynamic shared memory a block (bytes), threads a block and
+    resident blocks an SM."""
+    attrs = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _launch(_lib().spleeterrt_masked_istft4096_attrs,
+                ISTFT_GROUPS if groups is None else groups, attrs)
+    return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))

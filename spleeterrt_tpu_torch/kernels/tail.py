@@ -22,9 +22,19 @@ from `_up_weights`, taps in `_UP_TAPS` order), as the TPU kernels ran on
 their matrix unit; float32 runs an fp32 FMA template, the parity path,
 which TF32 would not hold to its 1e-5 bound. What bounds them on an H100
 at 300 s: bf16 up4 the tensor cores' operations (0.26 ms), bf16 up5 its
-bytes (0.38 ms); the float32 path the FMA units (3.83 ms a layer). A bf16
-source that is not 16-byte aligned raises (the kernel copies 16 bytes at
-a time).
+bytes (0.38 ms); the float32 path the FMA units (3.83 ms a layer).
+
+The head (K6, and K10 in kernels/mask_head.py, one template) follows the
+same kind of rule (`_head_tensor_cores`, the twin of the switch in
+csrc/head.cu): bf16 runs up6 as an implicit GEMM on mma.sync (bf16
+operands, float32 sums; weights (S, 18, 8, 16) from `_head_weights`: 18
+k16 steps of one source's 16 channels at one input shift, the 4 output
+parities padded to 8 columns), then up7 and the sigmoid in fp32; float32
+runs the fp32 FMA template. What bounds the head on an H100 at 300 s is
+its bytes (0.575 ms for the 4-stem graph). No shape or alignment sends a
+bf16 call to the FMA template: a bf16 source that is not 16-byte aligned
+raises, in up4/up5 and in the head alike (the kernels copy 16 bytes at a
+time).
 
 On a CPU tensor each wrapper returns its plain version (`*_plain`, torch
 convolutions in float32 on the same rounded operands); on a CUDA tensor it
@@ -97,6 +107,8 @@ def _lib() -> ctypes.CDLL:
     lib.spleeterrt_head.restype = i
     lib.spleeterrt_mask_head.argtypes = [i, p, p, p, p, i, i, i, i, i, p, p]
     lib.spleeterrt_mask_head.restype = i
+    lib.spleeterrt_head_mma_attrs.argtypes = [ctypes.POINTER(i)]
+    lib.spleeterrt_head_mma_attrs.restype = i
     return lib
 
 
@@ -262,14 +274,77 @@ def check_head_params(dev, n_img, w6, b6, bn_scale6, bn_shift6, w7, b7) -> int:
     return s
 
 
-def head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7, dtype):
-    """The head kernel's weights in `dtype`, (S, 32, 25) and (S, 2, 16), and
-    its scalar table (S, 5) float32: b6, bn_scale6, bn_shift6, b7. The
-    caller keeps all three bound to names until the launch returns."""
+def _head_tensor_cores(dtype) -> bool:
+    """The fixed rule of csrc/head.cu: the bf16 head (K6, K10) runs up6 on
+    the tensor cores, the float32 head the FMA template."""
+    return dtype == torch.bfloat16
+
+
+def _head_taps() -> tuple[int, ...]:
+    """The tensor-core head's B operand as up6 taps: for each input shift
+    (dh, dw) in row-major order over {-1, 0, 1}^2 and each of 8 columns,
+    the tap 5 kh + kw that output parity 2 dp + dq (the column) reads
+    through it, kh = 1 - 2 dh + dp and kw = 1 - 2 dw + dq (as `_up_taps`),
+    or 25 where there is none: columns 4-7 (padding) and 11 of the 36
+    (shift, parity) pairs."""
+    taps = []
+    for dh in (-1, 0, 1):
+        for dw in (-1, 0, 1):
+            for col in range(8):
+                dp, dq = divmod(col, 2)
+                kh, kw = 1 - 2 * dh + dp, 1 - 2 * dw + dq
+                taps.append(5 * kh + kw if col < 4 and 0 <= kh < 5 and 0 <= kw < 5 else 25)
+    return tuple(taps)
+
+
+@functools.cache
+def _head_tap_index(device: torch.device) -> torch.Tensor:
+    """_head_taps as a (9, 8) index tensor on `device`, made once (see
+    `_up_tap_index`)."""
+    return torch.tensor(_head_taps(), device=device).reshape(9, 8)
+
+
+def _head_weights(w6: torch.Tensor, dtype) -> torch.Tensor:
+    """(S, 32, 1, 5, 5) -> the tensor-core head's B operand in dtype, (S,
+    18, 8, 16): k16 step 9 src + shift (skip1's 16 channels at the 9 input
+    shifts, then up5's), column 2 dp + dq (zero where the parity does not
+    read the shift, and for columns 4-7), K the source's channel,
+    contiguous."""
     s = w6.shape[0]
-    return (w6.to(dtype).reshape(s, 32, 25).contiguous(),
-            w7.to(dtype).reshape(s, 2, 16).contiguous(),
+    w = torch.cat([w6.reshape(s, 2, 16, 25), w6.new_zeros(s, 2, 16, 1)], -1)
+    b = w[..., _head_tap_index(w6.device)]  # (S, src, channel, shift, column)
+    return b.permute(0, 1, 3, 4, 2).reshape(s, 18, 8, 16).to(dtype).contiguous()
+
+
+def head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7, dtype):
+    """The head kernel's weights in `dtype`, up6's (S, 18, 8, 16) from
+    `_head_weights` for the tensor cores or (S, 32, 25) for the FMA
+    template, up7's (S, 2, 16), and its scalar table (S, 5) float32: b6,
+    bn_scale6, bn_shift6, b7. The caller keeps all three bound to names
+    until the launch returns."""
+    s = w6.shape[0]
+    w6k = (_head_weights(w6, dtype) if _head_tensor_cores(dtype)
+           else w6.to(dtype).reshape(s, 32, 25).contiguous())
+    return (w6k, w7.to(dtype).reshape(s, 2, 16).contiguous(),
             torch.cat([b6, bn_scale6, bn_shift6, b7], 1).contiguous())
+
+
+def check_head_alignment(dtype, *sources: torch.Tensor) -> None:
+    """The tensor-core head copies 16 bytes at a time: raise unless every
+    bf16 source is 16-byte aligned."""
+    if _head_tensor_cores(dtype) and any(t.data_ptr() % 16 for t in sources):
+        raise ValueError("the head's bf16 sources must be 16-byte aligned")
+
+
+def head_mma_attributes(device: torch.device) -> dict[str, int]:
+    """The bf16 tensor-core head's resources (K6's instance; K10's differs
+    only in the channel stride), as the CUDA runtime reports them on
+    `device`: registers a thread, dynamic shared memory a block (bytes),
+    threads a block and resident blocks an SM."""
+    attrs = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        launch(_lib().spleeterrt_head_mma_attrs, attrs)
+    return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))
 
 
 def head(
@@ -297,9 +372,10 @@ def head(
                           act=act)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    dtype = skip1.dtype
+    check_head_alignment(dtype, skip1, up5)
     masks = torch.empty((s, sb // s, 2, 2 * h, 2 * wd), dtype=torch.float32,
                         device=dev)
-    dtype = skip1.dtype
     w6k, w7k, scal = head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7, dtype)
     with torch.cuda.device(dev):
         launch(

@@ -2,14 +2,21 @@
 
 chip_smoke.py checks the kernels at the main path's shapes; these tests
 add edge shapes: for K1/K7 lengths that end mid-frame, one and three rows,
-the narrowest and widest bin limits, spans that end mid-block; for K2-K6
+the narrowest and widest bin limits, and for K7 1, 3, 4 and 5 stems and
+frame counts below one run of its register overlap-add and past several
+(run twice, bit-identical); for K2-K6
 the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
 one tile and an odd tile count, one stem and four, both compute dtypes;
 bf16 K3 and bf16 K4/K5 (the tensor-core templates) with one image, an
 output or input height of 1, widths that are not a multiple of the
 32-column tile (K4/K5 also W = 8) and two stems over three images each,
 each run twice (bit-identical), and K4/K5 refusing a source off 16-byte
-alignment; for
+alignment; bf16 K6 (its tensor-core template) with one image, H/2 = 1, a
+width that is not a multiple of the mask tile (and one whose masks' rows
+are not a multiple of 4) and two stems over three images each with odd
+H/2, held per pixel to tail.head_error_bound, run twice (bit-identical)
+and equal to K10 on the concatenated sources, and K6 and K10 refusing a
+bf16 source off 16-byte alignment; for
 K8/K9 one frame and odd frame counts, bin limits 1, 512, 777, 2048 and
 2049, with and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
 and the round-3 route; and one streaming block step at K = 1.
@@ -72,7 +79,7 @@ def _inputs(device, rows, n, time_step):
 
 SHAPES = [  # rows, samples, bin_limit, time_step
     (2, 50_000, 512, 64),
-    (1, 3 * 4096 + 5, 2048, 64),
+    (1, 3 * 4096 + 5, 2048, 64),  # 12 frames: below one K7 run
     (3, 123_457, 1536, 256),
     (2, 300_001, 1024, 128),
 ]
@@ -94,7 +101,7 @@ def test_stft_kernel_matches_plain(device, rows, n, bin_limit, time_step):
 
 
 @pytest.mark.parametrize("rows,n,bin_limit,time_step", SHAPES)
-@pytest.mark.parametrize("n_stems", [1, 4])
+@pytest.mark.parametrize("n_stems", [1, 3, 4, 5])
 def test_masked_istft_kernel_matches_plain(
     device, rows, n, bin_limit, time_step, n_stems
 ):
@@ -298,6 +305,66 @@ def test_head_kernel_matches_plain(device, dtype, n_stems, n_tiles, t, f):
     err = (got - ref).abs()
     bound = tail.head_error_bound(*args, act=act)
     assert torch.all(err <= bound), f"head: max error / bound {(err / bound).max()}"
+
+
+HEAD_EDGES = [  # stems, images, H/2, W/2 (the sources' size)
+    (1, 1, 16, 64),  # one image
+    (1, 2, 1, 48),  # H/2 = 1
+    (1, 1, 12, 70),  # W = 140, not a multiple of the 128-column tile
+    (1, 2, 10, 35),  # W = 70: mask rows not a multiple of 4 floats
+    (2, 6, 9, 24),  # S = 2 over 3 images each, odd H/2
+]
+
+
+@pytest.mark.parametrize("n_stems,n_img,h2,w2", HEAD_EDGES)
+def test_head_tensor_cores_at_edges(device, n_stems, n_img, h2, w2):
+    """bf16 K6 (the tensor-core template) at ragged tiles, per pixel within
+    tail.head_error_bound of its plain version, bit-identical over two
+    runs, and equal bit for bit to K10 (the same template) on the
+    concatenated sources."""
+    gen = torch.Generator().manual_seed(n_img * 100 + h2 + w2)
+    skip1, up5 = (torch.randn((n_img, h2, w2, 16), generator=gen).to(device, torch.bfloat16)
+                  for _ in range(2))
+    act = "elu" if n_stems == 1 else "relu"
+    w6, b6, s6, h6 = _layer(gen, n_stems, (32, 1, 5, 5), 1, device)
+    w7, b7, _, _ = _layer(gen, n_stems, (2, 1, 4, 4), 2, device)
+    args = (skip1, up5, w6, b6, s6, h6, w7, b7)
+    got = _counted("head", tail.head, *args, act=act)
+    ref = tail.head_plain(*args, act=act)
+    assert got.shape == ref.shape == (n_stems, n_img // n_stems, 2, 2 * h2, 2 * w2)
+    err = (got - ref).abs()
+    bound = tail.head_error_bound(*args, act=act)
+    assert torch.all(err <= bound), f"head: max error / bound {(err / bound).max()}"
+    assert torch.equal(got, tail.head(*args, act=act))
+    x = torch.cat([skip1, up5], -1).contiguous()
+    k10 = _counted("mask_head", mask_head.mask_head, x, *args[2:], act=act)
+    assert torch.equal(k10, got.flatten(0, 1))
+
+
+@pytest.mark.parametrize("misaligned", ["skip1", "up5", "x"])
+def test_head_tensor_cores_refuse_misaligned_sources(device, misaligned):
+    """The tensor-core head copies 16 bytes at a time: a bf16 source one
+    element off 16-byte alignment raises, in K6 and K10, and nothing
+    launches."""
+    gen = torch.Generator().manual_seed(8)
+    w6 = _layer(gen, 1, (32, 1, 5, 5), 1, device)
+    w7, b7, _, _ = _layer(gen, 1, (2, 1, 4, 4), 2, device)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if misaligned == "x":
+            shape = (1, 8, 16, 32)
+            buf = torch.randn(math.prod(shape) + 8, generator=gen).to(device, torch.bfloat16)
+            mask_head.mask_head(buf[1 : 1 + math.prod(shape)].view(shape), *w6, w7, b7,
+                                act="elu")
+        else:
+            shape = (1, 8, 16, 16)
+            buf = torch.randn((2, math.prod(shape) + 8), generator=gen).to(device, torch.bfloat16)
+            srcs = {"skip1": buf[0, :math.prod(shape)].view(shape),
+                    "up5": buf[1, :math.prod(shape)].view(shape)}
+            row = 0 if misaligned == "skip1" else 1
+            srcs[misaligned] = buf[row, 1 : 1 + math.prod(shape)].view(shape)
+            tail.head(srcs["skip1"], srcs["up5"], *w6, w7, b7, act="elu")
+    assert kernels.launch_counts() == before
 
 
 def test_packed_unet_runs_every_kernel_once(device):

@@ -174,3 +174,61 @@ def test_wrappers_reject_bad_inputs(rng):
             spec, masks, torch.zeros(3), transform.synthesis_window(CFG.transform),
             n_out,
         )
+
+
+def _k7_emulation(spec, masks, out_band, window, n_frames, run_hops):
+    """K7's overlap-add in torch, as csrc/istft.cu orders it: the frames
+    (irfft of the masked spectrum, times the window) of one (stem, row)
+    are walked in runs of run_hops output hops, each run starting with the
+    three frames before it (their own hops belong to the run before).
+    Thread t of a group owns output positions 2t + e + 256 j (e < 2) in a
+    ring of 16 slots, slot j mod 16; frame f adds its samples 256 q + 2t +
+    e to j = 4f + q (q < 16), in frame order, and then hop f (slots 4f to
+    4f + 3) is final: stored if the run owns it, and cleared. Hops past the
+    last frame only store."""
+    y = stft_fused.masked_bins(spec, masks, out_band, n_frames)
+    s_n, rows = y.shape[:2]
+    y[..., 0].imag.zero_()
+    y[..., -1].imag.zero_()
+    frames = torch.fft.irfft(y, n=4096, dim=-1) * window  # (S, rows, n_frames, 4096)
+    n_hops = n_frames + 3
+    out = torch.full((s_n, rows, n_hops * 1024), float("nan"))
+    for s in range(s_n):
+        for r in range(rows):
+            for h0 in range(0, n_hops, run_hops):
+                h1 = min(h0 + run_hops, n_hops)
+                ring = torch.zeros(16, 256)  # [slot][2t + e]
+                for fr in range(h0 - 3, h1):
+                    if 0 <= fr < n_frames:
+                        ring[(4 * fr + torch.arange(16)) % 16] += frames[s, r, fr].view(16, 256)
+                    final = (4 * fr + torch.arange(4)) % 16
+                    if fr >= h0:
+                        out[s, r, 1024 * fr : 1024 * fr + 1024] = ring[final].flatten()
+                    ring[final] = 0
+    return out
+
+
+@pytest.mark.parametrize("bin_limit", [1, 1024, 2049])
+@pytest.mark.parametrize("n_frames", [
+    1, 3, stft_fused.RUN_HOPS - 1, stft_fused.RUN_HOPS + 1,
+    3 * stft_fused.RUN_HOPS + 5,  # several runs and a remainder
+])
+@pytest.mark.parametrize("n_stems", [1, 3, 4])
+def test_k7_register_overlap_add_matches_plain(rng, n_stems, n_frames, bin_limit):
+    """K7's ownership of output positions by thread and its run-with-carry
+    walk, emulated in torch, give masked_istft4096_plain's audio to 1e-6 of
+    its largest sample, with every output position written exactly once."""
+    time_step, rows = 8, 2
+    nt = -(-n_frames // time_step)
+    spec = torch.complex(*(torch.from_numpy(
+        rng.standard_normal((rows, nt * time_step, 2049)).astype(np.float32))
+        for _ in range(2)))
+    masks = torch.from_numpy(rng.uniform(0.0, 1.0, (
+        n_stems, nt, rows, time_step, bin_limit)).astype(np.float32))
+    out_band = torch.from_numpy(rng.uniform(0.0, 1.0, n_stems).astype(np.float32))
+    window = transform.synthesis_window(CFG.transform)
+    ref = stft_fused.masked_istft4096_plain(spec, masks, out_band, window, n_frames)
+    got = _k7_emulation(spec, masks, out_band, window, n_frames, stft_fused.RUN_HOPS)
+    assert got.shape == ref.shape == (n_stems, rows, n_frames * 1024 + 3072)
+    assert not torch.isnan(got).any()
+    assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()

@@ -428,3 +428,82 @@ def test_per_parity_gemm_matches_plain(rng, c, act):
                                 scale, shift, act=act)
     assert got.shape == ref.shape == (4, 10, 14, c // 2)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core K6/K10's host side: its weight layout and its 18-step GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_head_tensor_cores_rule(dtype):
+    """The head's tensor-core template takes exactly bf16."""
+    assert tail._head_tensor_cores(dtype) == (dtype == torch.bfloat16)
+
+
+def test_head_weights_round_trip(rng):
+    """_head_weights gives (S, 18, 8, 16) bf16: step 9 src + shift, column
+    2 dp + dq, K the source's channel. Every tap of w6 rounded to bf16
+    comes back once per (source, channel) from the (shift, parity) that
+    reads it; the padding columns 4-7 and the 11 (shift, parity) pairs
+    with no tap are zero."""
+    w6 = _t(rng.standard_normal((2, 32, 1, 5, 5)).astype(np.float32))
+    wk = tail._head_weights(w6, torch.bfloat16)
+    assert wk.shape == (2, 18, 8, 16) and wk.dtype == torch.bfloat16
+    assert wk.is_contiguous()
+    back = torch.zeros((2, 32, 25), dtype=torch.bfloat16)
+    seen = torch.zeros(25, dtype=torch.int64)
+    for sh in range(9):
+        dh, dw = sh // 3 - 1, sh % 3 - 1
+        for col in range(8):
+            dp, dq = divmod(col, 2)
+            kh, kw = 1 - 2 * dh + dp, 1 - 2 * dw + dq
+            for src in range(2):
+                got = wk[:, 9 * src + sh, col]  # (S, 16)
+                if col >= 4 or not (0 <= kh < 5 and 0 <= kw < 5):
+                    assert torch.all(got == 0)
+                    continue
+                back[:, 16 * src : 16 * src + 16, 5 * kh + kw] = got
+            if col < 4 and 0 <= kh < 5 and 0 <= kw < 5:
+                seen[5 * kh + kw] += 1
+    assert torch.all(seen == 1)
+    assert torch.equal(back.reshape(2, 32, 1, 5, 5), w6.to(torch.bfloat16))
+
+
+def _head_gemm(skip1, up5, wk, b6, bn_scale6, bn_shift6, act, bper):
+    """The tensor-core head's up6 in torch: 18 k16 steps, step 9 src +
+    shift taking source src (skip1, then up5; zeros outside the image)
+    shifted by (dh, dw) as A and the step's (8, 16) slice of wk as B,
+    summed in float32 into 8 columns, of which column 2 dp + dq is output
+    parity (dp, dq); then the epilogue, activation before batch norm. Image
+    n uses stem n // bper's weights. -> (S, B, 1, 2H, 2W) float32."""
+    n_img, h, w, _ = skip1.shape
+    stem = torch.arange(n_img) // bper
+    acc = torch.zeros((n_img, h, w, 8))
+    for src, x in enumerate((skip1, up5)):
+        x = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+        for sh in range(9):
+            dh, dw = sh // 3 - 1, sh % 3 - 1
+            a = x[:, 1 + dh : 1 + dh + h, 1 + dw : 1 + dw + w]
+            acc += torch.einsum("nhwk,nck->nhwc", a, wk[stem, 9 * src + sh].float())
+    vec = lambda v: v[stem][:, :, None, None]
+    z = acc[..., :4].reshape(n_img, h, w, 2, 2).permute(0, 1, 3, 2, 4)
+    z = z.reshape(n_img, 1, 2 * h, 2 * w)
+    y = vec(bn_scale6) * model.activation(z + vec(b6), act) + vec(bn_shift6)
+    return y.reshape(-1, bper, 1, 2 * h, 2 * w)
+
+
+@pytest.mark.parametrize("act", ["elu", "relu"])
+def test_head_gemm_matches_up6_plain(rng, act):
+    """The emulated 18-step GEMM over the (S, 18, 8, 16) layout equals
+    up6_plain in float32 on bf16-rounded operands, to 1e-5 of max|plain|:
+    two stems over B = 2 images of 7 x 9 (odd H and W)."""
+    w6, b6, s6, h6 = _stack([_rand_layer(rng, 32, 1) for _ in range(2)])
+    skip1, up5 = (_t(rng.standard_normal((4, 7, 9, 16)).astype(np.float32))
+                  .to(torch.bfloat16).float() for _ in range(2))
+    wk = tail._head_weights(w6, torch.bfloat16)
+    got = _head_gemm(skip1, up5, wk, b6, s6, h6, act, bper=2)
+    ref = tail.up6_plain(skip1, up5, w6.to(torch.bfloat16).float(), b6, s6, h6,
+                         act=act)
+    assert got.shape == ref.shape == (2, 2, 1, 14, 18)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
