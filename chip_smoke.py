@@ -10,17 +10,17 @@ Phases, each of which raises (non-zero exit) on failure:
 2. Each kernel against its plain PyTorch version on the card, at the
    shapes of the path that runs it, with the max error beside its bound
    and both times: K1 and K7 in float32 at the 30 s offline shapes
-   (bin_limit 1536, time_step 256, 4 stems; K7 run twice, bit-identical);
-   K2-K6 (the packed U-Net) in float32 and in bfloat16, each on the
-   outputs of the plain chain before it, with the CLI's weights but random
-   biases and batch norms (K6 held to a per-pixel bound; K3, K4, K5 and K6
-   also run twice, bit-identical, and each K3, K4 and K5 layer timed
-   beside its bound, the fp32 FMA floor and cuDNN's bf16 convolution (K3)
-   or transposed convolution (K4, K5) alone, a convolution-only
-   yardstick; K4 and K5 also with the tensor-core template's registers,
-   shared memory and occupancy); K8 on the masked spectrum of one
-   streaming block of 4 streams and K9 at the 30 s overlap-2 shapes, both
-   in float32 and each run twice (bit-identical).
+   (bin_limit 1536, time_step 256, 4 stems; each run twice,
+   bit-identical); K2-K6 (the packed U-Net) in float32 and in bfloat16,
+   each on the outputs of the plain chain before it, with the CLI's
+   weights but random biases and batch norms (K6 held to a per-pixel
+   bound; K2-K6 also run twice, bit-identical, and each K2, K3, K4 and K5
+   layer timed beside its bound, the fp32 FMA floor and cuDNN's bf16
+   convolution (K2, K3) or transposed convolution (K4, K5) alone, a
+   convolution-only yardstick; K2, K4 and K5 also with the tensor-core
+   template's registers, shared memory and occupancy); K8 on the masked
+   spectrum of one streaming block of 4 streams and K9 at the 30 s
+   overlap-2 shapes, both in float32 and each run twice (bit-identical).
 3. The main path through the user's entry point: the CLI separates a 30 s
    synthetic WAV into 4 stems (VST config, bf16, random full-width
    weights); the launch counts must be K1, K2, K4, K5, K6, K7 once and K3
@@ -44,13 +44,15 @@ Phases, each of which raises (non-zero exit) on failure:
 8. 4-stem separation time at 150 s and 300 s (CUDA events): realtime
    factor, marginal rate, peak device memory, a per-stage breakdown at
    300 s (K1, K2, K3 x3, mid trunk, K4, K5, K6, K7, each kernel beside its
-   plain version, each K3, K4 and K5 layer beside its bound, the fp32 FMA
-   floor and cuDNN's (transposed) convolution alone, K6 beside its bound
-   and fp32 FMA floor, K7 beside its bound and torch.fft.irfft over the
-   pre-masked spectrum alone (an FFT-only yardstick), K4-K7 with their
-   templates' registers, shared memory and occupancy, and the canonical
-   cuDNN U-Net), and a profile of one 300 s separation (device busy time
-   by kernel).
+   plain version, K1 beside its bound and torch.fft.rfft of the windowed
+   frames alone (an FFT-only yardstick), each K2, K3, K4 and K5 layer
+   beside its bound, the fp32 FMA floor and cuDNN's (transposed)
+   convolution alone, K6 beside its bound and fp32 FMA floor, K7 beside
+   its bound and torch.fft.irfft over the pre-masked spectrum alone, K1,
+   K2 and K4-K7 with their templates' registers, shared memory and
+   occupancy, and the canonical cuDNN U-Net), and a profile of one 300 s
+   separation (device busy time by kernel; bf16 enc1 must run
+   enc1_mma_kernel and no FMA encoder kernel).
 9. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
    4, 16 and 64 streams, carrying the state: ms per block, the aggregate
    realtime factor, peak memory, the largest K inside the 5.944 s block
@@ -347,6 +349,12 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     if not (torch.all(spec[:, n_comp:] == 0) and torch.all(
             mag.transpose(0, 1).reshape(2, n_req, -1)[:, n_comp:] == 0)):
         raise AssertionError("K1: frames past n_comp are not exact zeros")
+    spec2, mag2 = stft_fused.stft4096(*k1_args)
+    same = torch.equal(spec, spec2) and torch.equal(mag, mag2)
+    log(f"[K1 stft4096] two runs bit-identical: {same}")
+    if not same:
+        raise AssertionError("K1 is not deterministic")
+    del spec2, mag2
 
     nt = n_req // cfg.time_step
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -407,9 +415,9 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                 f"{worst:.3e}")
             if not worst <= 1:
                 raise AssertionError(f"{label} disagrees with its plain version")
-            if name in ("enc_s2", "up4", "up5", "head"):
+            if name in ("enc1", "enc_s2", "up4", "up5", "head"):
                 again = fn(*args, **kw)
-                pairs = zip(got, again) if name == "enc_s2" else [(got, again)]
+                pairs = zip(got, again) if name.startswith("enc") else [(got, again)]
                 same = all(torch.equal(a, b) for a, b in pairs)
                 log(f"[{label} {name}] {str(dtype)[6:]}: two runs bit-identical: "
                     f"{same}")
@@ -423,7 +431,9 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
                 plain_ms = cuda_ms(lambda: plain(*args, **kw))
                 log(f"[{label} {name}] 30 s shapes, {str(dtype)[6:]}: kernel "
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-                if name == "enc_s2":
+                if name == "enc1":
+                    log_enc1(f"{label}, 30 s", args, kw, ms)
+                elif name == "enc_s2":
                     log_k3_layer(f"{label}, 30 s", args, kw, ms)
                 elif name in ("up4", "up5"):
                     log_up_layer(f"{label}, 30 s", name, args, kw, ms)
@@ -481,6 +491,50 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     for name, calls in timed.items():
         report[name].update(bound_entry(calls), library_ms=None)
     return report
+
+
+def log_stft(label: str, args, ms: float) -> None:
+    """K1's time beside its bound, cuFFT's torch.fft.rfft of the windowed
+    frames alone (the frames built outside the timing; no magnitude tiles
+    or zero frames: an FFT-only yardstick, not a library call for K1's
+    function), and its resources."""
+    bound = bound_entry([("stft4096", args, {})])
+    audio, window, n_comp = args[:3]
+    need = (n_comp - 1) * stft_fused.HOP + stft_fused.N
+    x = torch.nn.functional.pad(audio, (0, max(0, need - audio.shape[-1])))[:, :need]
+    frames = (x.unfold(-1, stft_fused.N, stft_fused.HOP) * window).contiguous()
+    fft_ms = cuda_ms(lambda: torch.fft.rfft(frames, n=stft_fused.N), 10)
+    del x, frames
+    log(f"[{label}] {audio.shape[0]} rows x {args[3]} frames: kernel {ms:.4f} ms, "
+        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+        f"{100 * bound['bound_ms'] / ms:.1f}%; torch.fft.rfft of the windowed frames "
+        f"alone (yardstick) {fft_ms:.4f} ms; {stft_fused.STFT_GROUPS} groups a block, "
+        f"{resources(stft_fused.stft_attributes(audio.device))}")
+
+
+def log_enc1(label: str, args, kw, ms: float) -> None:
+    """K2's time beside its bound, the fp32 FMA floor (its multiply-adds on
+    CUDA cores at 67 TFLOP/s) and cuDNN's convolution 2 -> 16 S alone on
+    the magnitude in the compute dtype (stride 2, padding 2: the same
+    output size and multiply-adds, but no bias, batch norm or activation
+    and one output; a convolution-only yardstick, not a library call for
+    K2's function), and in bf16 the tensor-core template's resources."""
+    bound = bound_entry([("enc1", args, kw)])
+    floor_ms = kernel_work("enc1", args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    mag, w = args[:2]
+    dtype = kw["dtype"]
+    x = mag.to(dtype)
+    wc = w.reshape(-1, 2, 5, 5).to(dtype)  # every stem's 16 channels
+    conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x, wc, stride=2, padding=2))
+    del x
+    res = ""
+    if encoder._tensor_cores(2, dtype):
+        res = (f"; enc1_mma_kernel "
+               f"{resources(encoder.enc1_attributes(mag.device, w.shape[0]))}")
+    log(f"[{label}] mag {tuple(mag.shape)}, {w.shape[0]} stems, {str(dtype)[6:]}: "
+        f"kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+        f"share {100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms; "
+        f"cuDNN conv2d 2 -> {16 * w.shape[0]} alone (yardstick) {conv_ms:.4f} ms{res}")
 
 
 def log_k3_layer(label: str, args, kw, ms: float) -> None:
@@ -928,6 +982,7 @@ def phase_timing(device) -> None:
         "K1 stft4096": cuda_ms(lambda: stft_fused.stft4096(*k1_args), 10),
         "K1 plain": cuda_ms(lambda: stft_fused.stft4096_plain(*k1_args), 10),
     }
+    log_stft(f"K1 stft4096, {BENCH_SECONDS[-1]:.0f} s", k1_args, stages["K1 stft4096"])
     calls, trunk_args = unet_calls(stacked, mag, cfg.compute_dtype)
     for i, (label, name, fn, plain, args, kw) in enumerate(calls):
         if i == 4:  # between enc4 and up4, in dataflow order
@@ -935,7 +990,9 @@ def phase_timing(device) -> None:
                 lambda: model.mid_trunk(*trunk_args), 5, 1)
         stages[label] = cuda_ms(lambda: fn(*args, **kw), 5, 1)
         stages[f"{label} plain"] = cuda_ms(lambda: plain(*args, **kw), 3, 1)
-        if name == "enc_s2":
+        if name == "enc1":
+            log_enc1(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw, stages[label])
+        elif name == "enc_s2":
             log_k3_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw,
                          stages[label])
         elif name in ("up4", "up5"):
@@ -963,18 +1020,19 @@ def phase_timing(device) -> None:
     marginal = (big - small) / ((times[big] - times[small]) / 1e3)
     log(f"[timing] realtime factor {rtf:.2f}x at {big:.0f} s, marginal "
         f"{marginal:.2f}x, peak memory {peak / 2**30:.3f} GiB")
-    profile_separation(stacked, padded, cfg)
+    names = profile_device("one separation",
+                           lambda: separate.separate_4stem(stacked, padded, cfg))
+    # bf16 enc1 runs the tensor-core template and no FMA encoder kernel.
+    fma = [n for n in names if "enc_conv_kernel" in n]
+    if not any("enc1_mma_kernel" in n for n in names) or fma:
+        raise AssertionError(f"bf16 enc1 did not run enc1_mma_kernel alone: {fma}")
+    log("[profile] bf16 enc1 ran enc1_mma_kernel; no FMA encoder kernel ran")
 
 
-def profile_separation(stacked, padded, cfg) -> None:
-    """Device time by kernel over one separation, and the idle share."""
-    profile_device("one separation",
-                   lambda: separate.separate_4stem(stacked, padded, cfg))
-
-
-def profile_device(label: str, fn) -> None:
+def profile_device(label: str, fn) -> collections.Counter:
     """Device time by kernel over one fn() after one warm-up call, against
-    its wall time (synchronised), and the idle share."""
+    its wall time (synchronised), and the idle share; returns the device
+    time (ms) by kernel name."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -993,6 +1051,7 @@ def profile_device(label: str, fn) -> None:
         f"ms wall, idle share {100 * max(0.0, 1 - busy / wall_ms):.1f}%")
     for name, ms in by_name.most_common(14):
         log(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {name}")
+    return by_name
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,30 @@
 // 10 per byte), bytes for enc2 and enc3 and arithmetic for enc4 on the
 // bf16 tensor cores (989 TFLOP/s, 148 per byte).
 //
-// Two templates, chosen by a fixed rule on dtype and Cin:
+// Three templates, chosen by a fixed rule on dtype and Cin:
 //
+// * bf16 enc1 (Cin 2): implicit GEMM on the tensor cores, all stems in
+//   one block (enc1_mma_kernel). enc1 is bound by the bytes it writes: at
+//   300 s of the 4-stem graph it reads 160 MB of magnitude and writes 1.28
+//   GB of bf16 skip and act, while its 16 GFLOP take ~0.02 ms of the bf16
+//   tensor cores (and 0.48 ms of the fp32 FMA units). M is output pixels
+//   (16 consecutive columns of one output row a warp tile), N is every
+//   stem's 16 channels (16 S: the stems share the one magnitude, so a
+//   block stages its fp32 patch once, rounds it to bf16 once and feeds it
+//   to all stems), K is (kh, kw, ci) with ci innermost, 50 padded to 64
+//   with zero weights (4 k16 steps of mma.sync m16n8k16). With ci
+//   innermost an A register (two consecutive k) is one staged pixel's two
+//   channels, so the patch is staged as bf16x2 pixels, its columns split
+//   by parity so that a tap's stride-2 pixels are consecutive words, and
+//   an A register is one 32-bit shared load. The weights, [S][16][64],
+//   and the epilogue table sit in shared memory for the whole block. The
+//   design is the stores: a warp runs one stem at a time (8 float32
+//   accumulators a thread), applies bias, batch norm and activation in
+//   float32 (the ELU as exp(z) - 1 on the hardware's exp2, as the TPU
+//   kernel computes it), rounds to bf16 and transposes each quad's
+//   fragments with four shuffles, so that every lane holds 8 consecutive
+//   channels of one pixel and every warp store writes 16 whole pixels (512
+//   contiguous bytes) with 16-byte vectors.
 // * bf16 enc2-enc4 (Cin 16, 32, 64): implicit GEMM on the tensor cores
 //   (enc_mma_kernel), as the TPU kernel ran them on its matrix unit with
 //   bf16 operands and float32 sums. M is output pixels (TH rows x 32
@@ -43,8 +65,7 @@
 //   a three-stage cp.async ring (enc4's 410 KB do not fit in shared
 //   memory), with the same swizzle. The epilogue runs on the accumulators
 //   in float32 and stores both outputs per fragment as bf16x2.
-// * fp32 enc2-enc4 (the fp32 parity path) and enc1 in either dtype (Cin =
-//   2, too shallow for k16 tiles): fp32 FMA on CUDA cores
+// * fp32 enc1-enc4 (the fp32 parity path): fp32 FMA on CUDA cores
 //   (enc_conv_kernel). A block computes 32 output columns x TH rows x all
 //   Cout; each thread holds 4 rows x 16 output channels in registers (64
 //   accumulators) at one column, so per (input channel, tap) it does 64
@@ -74,14 +95,14 @@ struct EncTile {
   static constexpr int RS = 2 * HS;                 // staged row stride
 };
 
-// x: NCHW float (enc1's magnitude) when kNCHW, else NHWC T.
-// wk: [S][5][5][CIN][COUT] in T. epi: [S][3][COUT] float (b, scale, shift).
-// skip, actv: [n_img][H/2][W/2][COUT] in T.
-template <typename TIn, typename T, int CIN, int COUT, bool kNCHW, int CC>
+// x: NCHW (enc1's magnitude) when kNCHW, else NHWC. wk: [S][5][5][CIN][COUT].
+// epi: [S][3][COUT] (b, scale, shift). skip, actv: [n_img][H/2][W/2][COUT].
+// All float.
+template <int CIN, int COUT, bool kNCHW, int CC>
 __global__ void __launch_bounds__(kUnetThreads, 2)
-enc_conv_kernel(const TIn* __restrict__ x, const T* __restrict__ wk,
+enc_conv_kernel(const float* __restrict__ x, const float* __restrict__ wk,
                 const float* __restrict__ epi, int bper, int in_batch, int H,
-                int W, int act, T* __restrict__ skip, T* __restrict__ actv) {
+                int W, int act, float* __restrict__ skip, float* __restrict__ actv) {
   using Tile = EncTile<COUT>;
   constexpr int PR = Tile::PR, PC = Tile::PC, HS = Tile::HS, RS = Tile::RS;
   static_assert(CIN % CC == 0 && Tile::WR * Tile::WC == 8, "tile shape");
@@ -97,7 +118,7 @@ enc_conv_kernel(const TIn* __restrict__ x, const T* __restrict__ wk,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wr = warp / Tile::WC, wc = warp % Tile::WC;
   const int hi0 = 2 * ho0 - 1, wi0 = 2 * wo0 - 1;  // staged row/col 0
-  const T* wstem = wk + static_cast<long long>(s) * 25 * CIN * COUT;
+  const float* wstem = wk + static_cast<long long>(s) * 25 * CIN * COUT;
 
   float acc[kRows][kCols];
 #pragma unroll
@@ -119,21 +140,16 @@ enc_conv_kernel(const TIn* __restrict__ x, const T* __restrict__ wk,
       }
       const int hi = hi0 + lr, wi = wi0 + lc;
       float v = 0.f;
-      if (hi >= 0 && hi < H && wi >= 0 && wi < W) {
-        const long long off =
-            kNCHW ? ((in_img * CIN + c0 + ci) * H + hi) * W + wi
-                  : ((in_img * H + hi) * W + wi) * CIN + c0 + ci;
-        // enc1's float32 magnitude is an operand like any other: rounded
-        // to the compute dtype first, as the TPU kernel and enc1_plain do.
-        v = kNCHW ? round_to<T>(to_f32(x[off])) : to_f32(x[off]);
-      }
+      if (hi >= 0 && hi < H && wi >= 0 && wi < W)
+        v = x[kNCHW ? ((in_img * CIN + c0 + ci) * H + hi) * W + wi
+                    : ((in_img * H + hi) * W + wi) * CIN + c0 + ci];
       xs[(ci * PR + lr) * RS + (lc & 1) * HS + (lc >> 1)] = v;
     }
     for (int idx = threadIdx.x; idx < 25 * CC * COUT; idx += kUnetThreads) {
       const int co = idx % COUT;
       const int ci = (idx / COUT) % CC;
       const int tap = idx / (COUT * CC);
-      ws[idx] = to_f32(wstem[(tap * CIN + c0 + ci) * COUT + co]);
+      ws[idx] = wstem[(tap * CIN + c0 + ci) * COUT + co];
     }
     __syncthreads();
 
@@ -188,12 +204,12 @@ enc_conv_kernel(const TIn* __restrict__ x, const T* __restrict__ wk,
   }
 }
 
-template <typename TIn, typename T, int CIN, int COUT, bool kNCHW, int CC>
+template <int CIN, int COUT, bool kNCHW, int CC>
 int launch_enc(const void* x, const void* wk, const void* epi, int n_img,
                int bper, int in_batch, int H, int W, int act, void* skip,
                void* actv, cudaStream_t stream) {
   using Tile = EncTile<COUT>;
-  auto kernel = enc_conv_kernel<TIn, T, CIN, COUT, kNCHW, CC>;
+  auto kernel = enc_conv_kernel<CIN, COUT, kNCHW, CC>;
   const size_t smem =
       sizeof(float) * (CC * Tile::PR * Tile::RS + 25 * CC * COUT);
   cudaError_t err = allow_smem(kernel, smem);
@@ -201,9 +217,9 @@ int launch_enc(const void* x, const void* wk, const void* epi, int n_img,
   const dim3 grid((W / 2 + kTileW - 1) / kTileW, (H / 2 + Tile::TH - 1) / Tile::TH,
                   n_img);
   kernel<<<grid, kUnetThreads, smem, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const T*>(wk),
+      static_cast<const float*>(x), static_cast<const float*>(wk),
       static_cast<const float*>(epi), bper, in_batch, H, W, act,
-      static_cast<T*>(skip), static_cast<T*>(actv));
+      static_cast<float*>(skip), static_cast<float*>(actv));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,25 +391,260 @@ int launch_enc_mma(const void* x, const void* wk, const void* epi, int n_img,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 enc1 on the tensor cores, every stem in one block
+// ---------------------------------------------------------------------------
+
+// A block of kWarps warps computes TH output rows x TW columns x 16 S
+// channels; warp w takes the block's m16 tiles (16 consecutive columns of
+// one row) w, w + kWarps, ...
+template <int TH_, int TW_, int WARPS_>
+struct Enc1Mma {
+  static constexpr int TH = TH_;                   // output rows a block
+  static constexpr int TW = TW_;                   // output columns a block
+  static constexpr int kWarps = WARPS_;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kMinBlocks = 768 / kThreads;  // at most 85 registers
+  static constexpr int CT = TW / 16;               // m16 tiles a row
+  static constexpr int MT = TH * CT;               // m16 tiles a block
+  static constexpr int PR = 2 * TH + 3;            // input rows staged
+  static constexpr int PP = TW + 2;                // input column pairs staged
+  // Words (bf16x2 pixels) of a parity row, 16 mod 32, so that the two
+  // parities of one row fall in different banks; of a staged row.
+  static constexpr int HS = PP + (48 - PP % 32) % 32;
+  static constexpr int RS = 2 * HS + 8;
+  static constexpr int kLoads = (PR * PP + kThreads - 1) / kThreads;  // a thread
+  static constexpr int kWRow = 36;  // words of a weight row: 32 + 4 of padding
+  static size_t smem(int n_stems) {
+    return 4u * (static_cast<size_t>(n_stems) * (16 * kWRow + 48) + PR * RS);
+  }
+  static_assert(TW % 16 == 0 && MT % kWarps == 0, "tile shape");
+};
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The activation of bf16 enc1's epilogue. Its ELU is exp(z) - 1, as the
+// TPU kernel computes it, on the hardware's exp2 (__expf): within ~1e-6
+// of expm1f for z <= 0, far below the bf16 rounding of the stored value,
+// where expm1f (activate, unet.cuh) took a third of the kernel's time.
+__device__ __forceinline__ float activate_bf16(float z, int act) {
+  if (act == kElu) return z > 0.f ? z : (z < -15.f ? -1.f : __expf(z) - 1.f);
+  return activate(z, act);
+}
+
+// Lane q of each quad holds a[2 r + n], the bf16x2 channel pair q of pixel
+// row r and n8 tile n of an m16n8 fragment pair; returns what lane q needs
+// to store pixel row q >> 1, channels 8 (q & 1) .. + 7: word j is lane j's
+// a[q]. A 4 x 4 transpose in two rounds of two shuffles.
+__device__ __forceinline__ uint4 quad_transpose(const unsigned (&a)[4], int q) {
+  const bool q0 = q & 1, q1 = q & 2;
+  // Round 1, with lane q ^ 1: keep the words whose bit 0 is q0, swap the
+  // others. Then c[j0 + 2 i] is word 2 i + q0 of the lane (j0, q1).
+  const unsigned r0 = __shfl_xor_sync(0xffffffffu, q0 ? a[0] : a[1], 1);
+  const unsigned r1 = __shfl_xor_sync(0xffffffffu, q0 ? a[2] : a[3], 1);
+  const unsigned k0 = q0 ? a[1] : a[0], k1 = q0 ? a[3] : a[2];
+  const unsigned c0 = q0 ? r0 : k0, c1 = q0 ? k0 : r0;
+  const unsigned c2 = q0 ? r1 : k1, c3 = q0 ? k1 : r1;
+  // Round 2, with lane q ^ 2: keep the words of row q1, swap the others.
+  const unsigned u0 = __shfl_xor_sync(0xffffffffu, q1 ? c0 : c2, 2);
+  const unsigned u1 = __shfl_xor_sync(0xffffffffu, q1 ? c1 : c3, 2);
+  return make_uint4(q1 ? u0 : c0, q1 ? u1 : c1, q1 ? c2 : u0, q1 ? c3 : u1);
+}
+
+// mag: (n_tiles, 2, H, W) float, 8-byte aligned. wk: [S][16][64] bf16, k =
+// 2 (5 kh + kw) + ci, zero from 50 on. epi: [S][3][16] float. skip, actv:
+// [S * n_tiles][H/2][W/2][16] bf16, image s * n_tiles + b for stem s.
+template <int TH, int TW, int WARPS>
+__global__ void __launch_bounds__(Enc1Mma<TH, TW, WARPS>::kThreads,
+                                  Enc1Mma<TH, TW, WARPS>::kMinBlocks)
+enc1_mma_kernel(const float* __restrict__ mag, const bf16* __restrict__ wk,
+                const float* __restrict__ epi, int n_stems, int n_tiles, int H, int W,
+                int act, bf16* __restrict__ skip, bf16* __restrict__ actv) {
+  using Tile = Enc1Mma<TH, TW, WARPS>;
+  constexpr int PP = Tile::PP, HS = Tile::HS, RS = Tile::RS, kWRow = Tile::kWRow;
+  constexpr int kThreads = Tile::kThreads, kLoads = Tile::kLoads;
+  extern __shared__ __align__(16) unsigned smem_u[];
+  unsigned* wsm = smem_u;                                   // [S * 16][kWRow]
+  float* esm = reinterpret_cast<float*>(smem_u + n_stems * 16 * kWRow);  // [S][3][16]
+  unsigned* patch = smem_u + n_stems * (16 * kWRow + 48);   // [PR][2 parities][HS]
+
+  const int Ho = H / 2, Wo = W / 2;
+  const int b = blockIdx.z;
+  const int ho0 = blockIdx.y * TH, wo0 = blockIdx.x * TW;
+  // Staged row lr is input row hi0 + lr; staged column c = 2 k + parity is
+  // input column wi0 + c, so output column w at tap kw reads c = 2 w + kw +
+  // 1: parity (kw + 1) & 1, word w + (kw + 1) / 2.
+  const int hi0 = 2 * ho0 - 1, wi0 = 2 * wo0 - 2;
+  const long long plane = static_cast<long long>(H) * W;
+  const float* x0 = mag + 2 * static_cast<long long>(b) * plane;
+
+  // The patch: every load in flight before the first store. A pair of
+  // columns is in or out of the image as a whole (W and wi0 even).
+  float2 c0[kLoads], c1[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int lr = idx / PP, hi = hi0 + lr, wi = wi0 + 2 * (idx % PP);
+    c0[i] = c1[i] = make_float2(0.f, 0.f);
+    if (idx < Tile::PR * PP && hi >= 0 && hi < H && wi >= 0 && wi < W) {
+      const float* p = x0 + static_cast<long long>(hi) * W + wi;
+      c0[i] = __ldg(reinterpret_cast<const float2*>(p));
+      c1[i] = __ldg(reinterpret_cast<const float2*>(p + plane));
+    }
+  }
+  const uint4* wg = reinterpret_cast<const uint4*>(wk);
+  for (int i = threadIdx.x; i < n_stems * 16 * 8; i += kThreads)
+    *reinterpret_cast<uint4*>(wsm + (i >> 3) * kWRow + (i & 7) * 4) = __ldg(wg + i);
+  for (int i = threadIdx.x; i < n_stems * 48; i += kThreads) esm[i] = __ldg(epi + i);
+  // The float32 magnitude is an operand like any other: rounded to bf16
+  // once, as the TPU kernel and enc1_plain do.
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (idx < Tile::PR * PP) {
+      unsigned* row = patch + (idx / PP) * RS + idx % PP;
+      row[0] = pack_bf16x2(c0[i].x, c1[i].x);
+      row[HS] = pack_bf16x2(c0[i].y, c1[i].y);
+    }
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  // This lane's A words: k pair 8 ks + 4 h + q is tap 8 ks + 4 h + q; the
+  // padding taps (25..31, zero weights) read tap 0's pixel.
+  int off[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tap = 8 * ks + 4 * h + q, kh = tap / 5, kw = tap % 5;
+      off[ks][h] = tap < 25 ? kh * RS + ((kw + 1) & 1) * HS + ((kw + 1) >> 1) : HS;
+    }
+  // ldmatrix rows of B: channel 8 (lane >> 4) + (lane & 7) of the stem, k
+  // half (lane >> 3) & 1 of each k16 step.
+  const unsigned* wlane =
+      wsm + (((lane >> 4) << 3) + (lane & 7)) * kWRow + ((lane >> 3) & 1) * 4;
+  const long long img_px = static_cast<long long>(Ho) * Wo * 16;  // an image's values
+
+#pragma unroll 1
+  for (int mt = warp; mt < Tile::MT; mt += WARPS) {
+    const int r = mt / Tile::CT, ho = ho0 + r, wo = wo0 + 16 * (mt % Tile::CT);
+    if (ho >= Ho || wo >= Wo) continue;  // the whole warp
+    const unsigned* pa = patch + 2 * r * RS + (wo - wo0) + g;
+    unsigned a[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      a[ks][0] = pa[off[ks][0]];
+      a[ks][1] = pa[off[ks][0] + 8];
+      a[ks][2] = pa[off[ks][1]];
+      a[ks][3] = pa[off[ks][1] + 8];
+    }
+    // After the transpose this lane stores pixel wo + g + 8 (q >> 1),
+    // channels 8 (q & 1) .. + 7.
+    const int wpx = wo + g + 8 * (q >> 1);
+    const long long pix = static_cast<long long>(b) * img_px +
+                          (static_cast<long long>(ho) * Wo + wpx) * 16 + 8 * (q & 1);
+#pragma unroll 1
+    for (int s = 0; s < n_stems; ++s) {
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        unsigned bf[4];
+        ldmatrix_x4(bf, wlane + s * 16 * kWRow + 8 * ks);
+        mma_bf16(acc[0], a[ks], bf[0], bf[1]);
+        mma_bf16(acc[1], a[ks], bf[2], bf[3]);
+      }
+      // Accumulator i of n8 tile n: pixel g + 8 (i / 2), channel 8 n + 2 q
+      // + i % 2.
+      const float* e = esm + s * 48 + 2 * q;
+      unsigned ws[4], wa[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 bb = *reinterpret_cast<const float2*>(e + 8 * n);
+        const float2 sc = *reinterpret_cast<const float2*>(e + 16 + 8 * n);
+        const float2 sh = *reinterpret_cast<const float2*>(e + 32 + 8 * n);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float s0 = acc[n][2 * h] + bb.x, s1 = acc[n][2 * h + 1] + bb.y;
+          ws[2 * h + n] = pack_bf16x2(s0, s1);
+          wa[2 * h + n] = pack_bf16x2(activate_bf16(sc.x * s0 + sh.x, act),
+                                      activate_bf16(sc.y * s1 + sh.y, act));
+        }
+      }
+      const uint4 vs = quad_transpose(ws, q), va = quad_transpose(wa, q);
+      if (wpx < Wo) {
+        const long long o = pix + static_cast<long long>(s) * n_tiles * img_px;
+        *reinterpret_cast<uint4*>(skip + o) = vs;
+        *reinterpret_cast<uint4*>(actv + o) = va;
+      }
+    }
+  }
+}
+
+template <int TH, int TW, int WARPS>
+int launch_enc1_mma(const void* mag, const void* wk, const void* epi, int n_stems,
+                    int n_tiles, int H, int W, int act, void* skip, void* actv,
+                    cudaStream_t stream) {
+  using Tile = Enc1Mma<TH, TW, WARPS>;
+  auto kernel = enc1_mma_kernel<TH, TW, WARPS>;
+  if (n_stems < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Tile::smem(n_stems);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W / 2 + TW - 1) / TW, (H / 2 + TH - 1) / TH, n_tiles);
+  kernel<<<grid, Tile::kThreads, smem, stream>>>(
+      static_cast<const float*>(mag), static_cast<const bf16*>(wk),
+      static_cast<const float*>(epi), n_stems, n_tiles, H, W, act,
+      static_cast<bf16*>(skip), static_cast<bf16*>(actv));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, dynamic shared memory a block, threads a block and
+// resident blocks an SM of one tile shape at n_stems stems.
+template <int TH, int TW, int WARPS>
+int enc1_mma_attrs(int n_stems, int* attrs) {
+  using Tile = Enc1Mma<TH, TW, WARPS>;
+  auto kernel = enc1_mma_kernel<TH, TW, WARPS>;
+  const size_t smem = Tile::smem(n_stems);
+  cudaError_t err = allow_smem(kernel, smem);
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&attrs[3], kernel, Tile::kThreads,
+                                                        smem);
+  attrs[0] = fa.numRegs;
+  attrs[1] = static_cast<int>(smem);
+  attrs[2] = Tile::kThreads;
+  return static_cast<int>(err);
+}
+
+// The pixel tile of bf16 enc1, chosen by a sweep on the card
+// (kernels/sweep_front.py, PERF.md): TH, TW, warps.
+#define ENC1_MMA 8, 128, 8
+
 int dispatch_enc(int cin, int bf16_io, const void* x, const void* wk,
                  const void* epi, int n_img, int bper, int in_batch, int H,
                  int W, int act, void* skip, void* actv, cudaStream_t st) {
   const int key = cin * 2 + (bf16_io ? 1 : 0);
   switch (key) {
     case 2 * 2:
-      return launch_enc<float, float, 2, 16, true, 2>(
+      return launch_enc<2, 16, true, 2>(
           x, wk, epi, n_img, bper, in_batch, H, W, act, skip, actv, st);
-    case 2 * 2 + 1:
-      return launch_enc<float, bf16, 2, 16, true, 2>(
-          x, wk, epi, n_img, bper, in_batch, H, W, act, skip, actv, st);
+    case 2 * 2 + 1:  // enc1 reads the one stem-shared magnitude: in_batch = bper
+      return launch_enc1_mma<ENC1_MMA>(x, wk, epi, n_img / bper, bper, H, W, act, skip,
+                                       actv, st);
     case 16 * 2:
-      return launch_enc<float, float, 16, 32, false, 4>(
+      return launch_enc<16, 32, false, 4>(
           x, wk, epi, n_img, bper, in_batch, H, W, act, skip, actv, st);
     case 32 * 2:
-      return launch_enc<float, float, 32, 64, false, 4>(
+      return launch_enc<32, 64, false, 4>(
           x, wk, epi, n_img, bper, in_batch, H, W, act, skip, actv, st);
     case 64 * 2:
-      return launch_enc<float, float, 64, 128, false, 4>(
+      return launch_enc<64, 128, false, 4>(
           x, wk, epi, n_img, bper, in_batch, H, W, act, skip, actv, st);
     case 16 * 2 + 1:
       return launch_enc_mma<16, 32, 8, 1>(
@@ -416,9 +667,10 @@ int dispatch_enc(int cin, int bf16_io, const void* x, const void* wk,
 // One encoder layer over n_img images of H x W (both even). cin 2 reads
 // float NCHW input (enc1); cin 16/32/64 read NHWC input in the compute
 // dtype (bf16 when `bf16`, else float). Weights: [S][5][5][Cin][Cout] for
-// the FMA template (float, and enc1 in either dtype), [S][25][Cout][Cin]
-// for bf16 enc2-enc4 on the tensor cores, whose input must be 16-byte
-// aligned. Launches on `stream`; returns the cudaError_t of the launch.
+// the FMA template (float), [S][16][64] for bf16 enc1 (whose magnitude
+// must be 8-byte aligned) and [S][25][Cout][Cin] for bf16 enc2-enc4 (whose
+// input must be 16-byte aligned) on the tensor cores. Launches on
+// `stream`; returns the cudaError_t of the launch.
 extern "C" int spleeterrt_enc_conv(int cin, int bf16, const void* x,
                                    const void* wk, const void* epi, int n_img,
                                    int bper, int in_batch, int H, int W,
@@ -427,4 +679,11 @@ extern "C" int spleeterrt_enc_conv(int cin, int bf16, const void* x,
   return spleeterrt::dispatch_enc(cin, bf16, x, wk, epi, n_img, bper, in_batch,
                                   H, W, act, skip, actv,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// attrs[0..3] of bf16 enc1 at n_stems stems: registers a thread, dynamic
+// shared memory a block (bytes), threads a block, resident blocks an SM.
+// Returns a cudaError_t.
+extern "C" int spleeterrt_enc1_mma_attrs(int n_stems, int* attrs) {
+  return spleeterrt::enc1_mma_attrs<ENC1_MMA>(n_stems, attrs);
 }

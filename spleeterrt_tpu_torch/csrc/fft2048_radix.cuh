@@ -1,8 +1,8 @@
 // A register-resident, mixed-radix 2048-point complex inverse FFT for one
 // group of 128 threads (four warps), and the masked Hermitian merge that
-// feeds it: the core of every inverse kernel, istft.cu (K7) and irfft.cu
-// (K8, K9). The forward STFT (stft.cu, K1) keeps the radix-2 core of
-// fft2048.cuh.
+// feeds it: the core of every FFT kernel, the inverse ones istft.cu (K7)
+// and irfft.cu (K8, K9), and the forward STFT (stft.cu, K1), which runs it
+// as forward(z) = conj(inverse(conj z)).
 //
 // 2048 = 16 * 16 * 8, in three self-sorting (Stockham) passes. Pass p
 // with radix R after passes whose radices multiply to Ns computes, for each
@@ -15,15 +15,16 @@
 // pass 3 (radix 8); its values live in registers, where the radix-16 and
 // radix-8 butterflies run, and only the two exchanges between passes go
 // through shared memory: two round trips and three group barriers in place
-// of the radix-2 core's eleven synchronised stages (fft2048.cuh). The
-// exchange buffer holds one float2 of padding after every 16, which makes
-// every read and write of the three passes free of bank conflicts.
+// of a radix-2 core's eleven synchronised stages. The exchange buffer
+// holds one float2 of padding after every 16, which makes every read and
+// write of the three passes free of bank conflicts.
 //
-// Twiddles: the merge reads tw[k] = exp(-2 pi i k / 4096) (the table of
-// fft2048.cuh); passes 2 and 3 read their own tables, appended to it by the
-// host, in [r][k] order so that neighbouring threads read neighbouring
-// entries: exp(+2 pi i r k / 256) for r, k < 16 at kPassTw2, and
-// exp(+2 pi i r j / 2048) for r < 8, j < 256 at kPassTw3. All are float64
+// Twiddles: the merge (and K1's split) reads tw[k] = exp(-2 pi i k /
+// 4096) (the table of fft2048.cuh); passes 2 and 3 read their own tables,
+// appended to it by the host, in [r][k] order so that neighbouring
+// threads read neighbouring entries: exp(+2 pi i r k / 256) for r, k < 16
+// at kPassTw2, and exp(+2 pi i r j / 2048) for r < 8, j < 256 at
+// kPassTw3. All are float64
 // values rounded once to float32 (kernels/__init__.py::irfft_twiddles).
 #pragma once
 

@@ -71,19 +71,15 @@ def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _twiddles4096_np() -> np.ndarray:
+def twiddles4096() -> np.ndarray:
+    """The FFT kernels' split and merge table (csrc/fft2048.cuh): tw[j] =
+    exp(-2 pi i j / 4096), j < 2048, in float64 math with one rounding to
+    complex64."""
     return np.exp(-2j * np.pi * np.arange(2048) / 4096).astype(np.complex64)
 
 
-@functools.cache
-def twiddles4096(device: torch.device) -> torch.Tensor:
-    """The FFT kernels' table (csrc/fft2048.cuh): tw[j] = exp(-2 pi i j /
-    4096), j < 2048, in float64 math with one rounding to complex64."""
-    return torch.from_numpy(_twiddles4096_np()).to(device)
-
-
 def radix_pass_twiddles() -> np.ndarray:
-    """The pass twiddles of the register-radix 2048-point inverse FFT
+    """The pass twiddles of the register-radix 2048-point FFT core
     (csrc/fft2048_radix.cuh), each in [r][k] order: exp(+2 pi i r k / 256)
     for r, k < 16 (pass 2), then exp(+2 pi i r j / 2048) for r < 8, j <
     256 (pass 3); float64 math, one rounding to complex64."""
@@ -97,9 +93,9 @@ def radix_pass_twiddles() -> np.ndarray:
 
 @functools.cache
 def irfft_twiddles(device: torch.device) -> torch.Tensor:
-    """K8/K9's table (csrc/irfft.cu): twiddles4096's 2048 entries, then
-    radix_pass_twiddles' 2304."""
-    tw = np.concatenate([_twiddles4096_np(), radix_pass_twiddles()])
+    """The FFT kernels' table (K1, K7, K8, K9; csrc/fft2048_radix.cuh):
+    twiddles4096's 2048 entries, then radix_pass_twiddles' 2304."""
+    tw = np.concatenate([twiddles4096(), radix_pass_twiddles()])
     return torch.from_numpy(tw).to(device)
 
 

@@ -14,9 +14,11 @@ are NHWC (S * B, H/2, W/2, C): image s * B + b is stem s's net on tile b.
 enc1 reads the stem-shared magnitude tiles (B, 2, T, F) float32 from the
 fused STFT and never copies them per stem.
 
-On the card, bf16 enc2-enc4 run an implicit GEMM on the tensor cores
-(mma.sync, bf16 operands, float32 sums); float32 layers and enc1 run an
-fp32 FMA template. The rule is fixed on dtype and Cin (`_tensor_cores`).
+On the card, bf16 layers run an implicit GEMM on the tensor cores
+(mma.sync, bf16 operands, float32 sums): enc1 with every stem's channels
+in one block over the one staged magnitude patch, enc2-enc4 stem by
+stem; float32 layers run an fp32 FMA template. The rule is fixed on
+dtype (`_tensor_cores`).
 On a CPU tensor each wrapper returns its plain version (`*_plain`, torch
 convolutions in float32 on the same rounded operands); on a CUDA tensor it
 launches the kernel or raises.
@@ -52,23 +54,33 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.spleeterrt_enc_conv.argtypes = [i, i, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.spleeterrt_enc_conv.restype = i
+    lib.spleeterrt_enc1_mma_attrs.argtypes = [i, ctypes.POINTER(i)]
+    lib.spleeterrt_enc1_mma_attrs.restype = i
     return lib
 
 
+ENC1_K = 64  # bf16 enc1's K: 25 taps x 2 channels, padded to 4 k16 steps
+
+
 def _tensor_cores(cin: int, dtype) -> bool:
-    """The fixed rule of csrc/encoder.cu: bf16 enc2-enc4 run the tensor-core
-    template, fp32 layers and enc1 the FMA template."""
-    return dtype == torch.bfloat16 and cin in S2_WIDTHS
+    """The fixed rule of csrc/encoder.cu: bf16 layers run the tensor-core
+    templates (enc1_mma_kernel for Cin 2, enc_mma_kernel for enc2-enc4),
+    fp32 layers the FMA template."""
+    return dtype == torch.bfloat16
 
 
 def _conv_weights(w: torch.Tensor, dtype) -> torch.Tensor:
-    """(S, Cout, Cin, 5, 5) -> the kernel's layout in dtype: (S, 25, Cout,
-    Cin) for the tensor cores (one tap's B operand, K contiguous), else
-    (S, 5, 5, Cin, Cout)."""
+    """(S, Cout, Cin, 5, 5) -> the kernel's layout in dtype. On the tensor
+    cores: enc1 (Cin 2) (S, 16, ENC1_K), k = 2 (5 kh + kw) + ci, zero from
+    50 on (every stem's B operand, K contiguous); enc2-enc4 (S, 25, Cout,
+    Cin) (one tap's B operand). Else (S, 5, 5, Cin, Cout)."""
     s, cout, cin = w.shape[:3]
-    if _tensor_cores(cin, dtype):
-        return w.to(dtype).permute(0, 3, 4, 1, 2).reshape(s, 25, cout, cin).contiguous()
-    return w.to(dtype).permute(0, 3, 4, 2, 1).contiguous()
+    if not _tensor_cores(cin, dtype):
+        return w.to(dtype).permute(0, 3, 4, 2, 1).contiguous()
+    taps = w.to(dtype).permute(0, 1, 3, 4, 2)  # (S, Cout, kh, kw, Cin)
+    if cin == 2:
+        return torch.nn.functional.pad(taps.reshape(s, cout, 50), (0, ENC1_K - 50))
+    return taps.permute(0, 2, 3, 1, 4).reshape(s, 25, cout, cin).contiguous()
 
 
 def _layer_plain(xs, w, b, bn_scale, bn_shift, act, dtype):
@@ -116,6 +128,8 @@ def enc1(
         return enc1_plain(mag, w, b, bn_scale, bn_shift, act=act, dtype=dtype)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if _tensor_cores(2, dtype) and mag.data_ptr() % 8:  # float2 loads
+        raise ValueError("mag must be 8-byte aligned")
     skip = torch.empty((s * bsz, t // 2, f // 2, 16), dtype=dtype, device=dev)
     actv = torch.empty_like(skip)
     # Named, so their memory is not handed to the next allocation before
@@ -130,6 +144,16 @@ def enc1(
         )
     count_launch("enc1")
     return skip, actv
+
+
+def enc1_attributes(device: torch.device, n_stems: int) -> dict[str, int]:
+    """bf16 enc1's resources at n_stems stems, as the CUDA runtime reports
+    them on `device`: registers a thread, dynamic shared memory a block
+    (bytes), threads a block and resident blocks an SM."""
+    attrs = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        launch(_lib().spleeterrt_enc1_mma_attrs, n_stems, attrs)
+    return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))
 
 
 def enc_s2_plain(x, w, b, bn_scale, bn_shift, *, act):

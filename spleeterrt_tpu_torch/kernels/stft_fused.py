@@ -10,13 +10,16 @@ magnitude is written straight into the U-Net's NCHW tiles, and the masks
 are read in the layout the U-Net emits, (S, n_tiles, rows, time_step,
 bin_limit).
 
-K1 runs the radix-2 FFT in shared memory (csrc/fft2048.cuh). K7 runs the
-register-radix inverse FFT of K8/K9 (csrc/fft2048_radix.cuh, twiddles
-`kernels.irfft_twiddles`) and overlap-adds in registers: a 128-thread
-group walks RUN_HOPS output hops of one (stem, row) with a three-frame
-carry, and a block holds ISTFT_GROUPS groups (both chosen by
-`python -m spleeterrt_tpu_torch.kernels.sweep_ends` on the card). Both
-kernels are float32 throughout, so neither has a rule on dtype.
+Both run the register-radix 2048-point FFT of K8/K9
+(csrc/fft2048_radix.cuh, twiddles `kernels.irfft_twiddles`), one
+128-thread group a frame. K1 runs it forward, as conj(inverse(conj z)),
+and a block holds STFT_GROUPS groups on consecutive frames of one row
+(chosen by `python -m spleeterrt_tpu_torch.kernels.sweep_front` on the
+card). K7 overlap-adds in registers: a group walks RUN_HOPS output hops
+of one (stem, row) with a three-frame carry, and a block holds
+ISTFT_GROUPS groups (both chosen by `python -m
+spleeterrt_tpu_torch.kernels.sweep_ends`). Both kernels are float32
+throughout, so neither has a rule on dtype.
 
 Each wrapper checks device, dtype, shape and contiguity. A tensor on the
 CPU goes to the plain version (`*_plain`, torch.fft) beside it; a CUDA
@@ -40,12 +43,14 @@ from spleeterrt_tpu_torch.kernels import (
     irfft_twiddles,
     launch as _launch,
     stream_of,
-    twiddles4096,
 )
 
 N = 4096
 HOP = 1024  # the reference's only hop (Executable/stftFix.h:14-18)
 N_BINS = N // 2 + 1
+# K1's shape, chosen by kernels/sweep_front.py on the card: 128-thread
+# groups (frames) a block, 1 to 4.
+STFT_GROUPS = 2
 # K7's shape, chosen by kernels/sweep_ends.py on the card: output hops a
 # 128-thread group walks (a multiple of 4), and groups a block (1 to 4).
 RUN_HOPS = 32
@@ -56,8 +61,10 @@ ISTFT_GROUPS = 2
 def _lib() -> ctypes.CDLL:
     lib = _build.load()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.spleeterrt_stft4096.argtypes = [p, ll, ll, p, p, i, i, i, i, p, p, p]
+    lib.spleeterrt_stft4096.argtypes = [p, ll, ll, p, p, i, i, i, i, i, p, p, p]
     lib.spleeterrt_stft4096.restype = i
+    lib.spleeterrt_stft4096_attrs.argtypes = [i, ctypes.POINTER(i)]
+    lib.spleeterrt_stft4096_attrs.restype = i
     lib.spleeterrt_masked_istft4096.argtypes = [
         p, p, p, p, p, i, ll, i, i, i, i, i, i, i, p, p,
     ]
@@ -121,6 +128,8 @@ def stft4096(
         return stft4096_plain(audio, window, n_comp, n_req, bin_limit, time_step)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if window.data_ptr() % 8:
+        raise ValueError("window must be 8-byte aligned")  # float2 loads
     spec = torch.empty((rows, n_req, N_BINS), dtype=torch.complex64, device=dev)
     mag = torch.empty(
         (n_req // time_step, rows, time_step, bin_limit), dtype=torch.float32,
@@ -130,8 +139,8 @@ def stft4096(
         _launch(
             _lib().spleeterrt_stft4096,
             audio.data_ptr(), rows, data_size, window.data_ptr(),
-            twiddles4096(dev).data_ptr(), n_comp, n_req, bin_limit, time_step,
-            spec.data_ptr(), mag.data_ptr(), stream_of(dev),
+            irfft_twiddles(dev).data_ptr(), n_comp, n_req, bin_limit, time_step,
+            STFT_GROUPS, spec.data_ptr(), mag.data_ptr(), stream_of(dev),
         )
     count_launch("stft4096")
     return spec, mag
@@ -222,4 +231,16 @@ def istft_attributes(device: torch.device, groups: int | None = None) -> dict[st
     with torch.cuda.device(device):
         _launch(_lib().spleeterrt_masked_istft4096_attrs,
                 ISTFT_GROUPS if groups is None else groups, attrs)
+    return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))
+
+
+def stft_attributes(device: torch.device, groups: int | None = None) -> dict[str, int]:
+    """K1's resources with `groups` 128-thread groups a block (default
+    STFT_GROUPS), as the CUDA runtime reports them on `device`: registers
+    a thread, dynamic shared memory a block (bytes), threads a block and
+    resident blocks an SM."""
+    attrs = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _launch(_lib().spleeterrt_stft4096_attrs,
+                STFT_GROUPS if groups is None else groups, attrs)
     return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))

@@ -2,12 +2,16 @@
 
 chip_smoke.py checks the kernels at the main path's shapes; these tests
 add edge shapes: for K1/K7 lengths that end mid-frame, one and three rows,
-the narrowest and widest bin limits, and for K7 1, 3, 4 and 5 stems and
+the narrowest and widest bin limits, for K1 odd lengths (rows off 8-byte
+alignment), zero frames past n_comp and 1 to 4 frames a block with the
+last block partly empty (run twice, bit-identical), and for K7 1, 3, 4 and 5 stems and
 frame counts below one run of its register overlap-add and past several
 (run twice, bit-identical); for K2-K6
 the smallest tiles the packed U-Net admits (T = F = 64; K2/K3 also T = 32),
 one tile and an odd tile count, one stem and four, both compute dtypes;
-bf16 K3 and bf16 K4/K5 (the tensor-core templates) with one image, an
+bf16 K2 with 1, 2, 3 and 5 stems, H/2 = 1 and widths that are not a
+multiple of its pixel tile (run twice, bit-identical), refusing a
+magnitude off 8-byte alignment; bf16 K3 and bf16 K4/K5 (the tensor-core templates) with one image, an
 output or input height of 1, widths that are not a multiple of the
 32-column tile (K4/K5 also W = 8) and two stems over three images each,
 each run twice (bit-identical), and K4/K5 refusing a source off 16-byte
@@ -98,6 +102,41 @@ def test_stft_kernel_matches_plain(device, rows, n, bin_limit, time_step):
     assert (spec - pspec).abs().max().item() <= bound
     assert (mag - pmag).abs().max().item() <= bound
     assert torch.all(spec[:, n_comp:] == 0)
+    spec2, mag2 = stft_fused.stft4096(*args)
+    assert torch.equal(spec, spec2) and torch.equal(mag, mag2)  # deterministic
+
+
+K1_EDGES = [  # rows, samples, bin_limit, time_step, extra frames past n_out
+    (1, 3 * 4096 + 5, 2049, 1, 0),  # one row, odd length, the widest bin limit
+    (3, 40_001, 1, 1, 3),  # odd rows misaligned, narrowest bin limit
+    (3, 9 * 1024 + 7, 777, 1, 2),  # 10 frames + 2 zero frames
+    (2, 50_000, 512, 7, 0),  # frames a multiple of 7, not of the groups
+]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+@pytest.mark.parametrize("rows,n,bin_limit,time_step,extra", K1_EDGES)
+def test_stft_kernel_at_edges(device, monkeypatch, groups, rows, n, bin_limit,
+                              time_step, extra):
+    """K1 with 1 to 4 frames a block: odd data_size (row starts off 8-byte
+    alignment), frames past n_comp (exact zeros), frame counts that leave
+    the last block's groups partly empty, bin limits 1, 777 and 2049;
+    against the plain version to 1e-5 of max|X|, bit-identical over two
+    runs."""
+    monkeypatch.setattr(stft_fused, "STFT_GROUPS", groups)
+    audio, n_out, n_comp, _ = _inputs(device, rows, n, time_step)
+    n_req = -(-(n_out + extra) // time_step) * time_step
+    assert n_comp < n_req
+    args = (audio, transform.analysis_window(4096, device=device), n_comp,
+            n_req, bin_limit, time_step)
+    spec, mag = _counted("stft4096", stft_fused.stft4096, *args)
+    pspec, pmag = stft_fused.stft4096_plain(*args)
+    bound = 1e-5 * pspec.abs().max().item()
+    assert (spec - pspec).abs().max().item() <= bound
+    assert (mag - pmag).abs().max().item() <= bound
+    assert torch.all(spec[:, n_comp:] == 0)
+    spec2, mag2 = stft_fused.stft4096(*args)
+    assert torch.equal(spec, spec2) and torch.equal(mag, mag2)
 
 
 @pytest.mark.parametrize("rows,n,bin_limit,time_step", SHAPES)
@@ -203,6 +242,44 @@ def test_encoder_kernels_match_plain(device, dtype, n_stems, n_tiles, t, f):
         _assert_close(skip, pskip, dtype, f"enc_s2({c}) skip")
         _assert_close(y, py, dtype, f"enc_s2({c}) act")
         px = py
+
+
+ENC1_EDGES = [  # stems, tiles, T, F
+    (1, 1, 32, 64),  # one image
+    (2, 2, 2, 80),  # H/2 = 1
+    (3, 3, 22, 70),  # W/2 = 35, not a multiple of the pixel tile; odd H/2
+    (5, 2, 18, 150),  # five stems, W/2 = 75
+]
+
+
+@pytest.mark.parametrize("n_stems,n_tiles,t,f", ENC1_EDGES)
+def test_enc1_tensor_cores_at_edges(device, n_stems, n_tiles, t, f):
+    """bf16 enc1 (the tensor-core template, every stem in one block) at
+    ragged tiles and 1, 2, 3 and 5 stems, against the plain version to 2
+    bf16 ulps, and bit-identical over two runs."""
+    gen = torch.Generator().manual_seed(n_stems * 100 + n_tiles * 10 + t + f)
+    mag = (torch.rand((n_tiles, 2, t, f), generator=gen) * 5).to(device)
+    ly = _layer(gen, n_stems, (16, 2, 5, 5), 16, device)
+    kw = {"act": "elu", "dtype": torch.bfloat16}
+    skip, x = _counted("enc1", encoder.enc1, mag, *ly, **kw)
+    pskip, px = encoder.enc1_plain(mag, *ly, **kw)
+    _assert_close(skip, pskip, torch.bfloat16, "enc1 skip")
+    _assert_close(x, px, torch.bfloat16, "enc1 act")
+    skip2, x2 = encoder.enc1(mag, *ly, **kw)
+    assert torch.equal(skip, skip2) and torch.equal(x, x2)
+
+
+def test_enc1_tensor_cores_refuse_misaligned_magnitude(device):
+    """bf16 enc1 loads the magnitude as float2 pairs: a magnitude one float
+    off 8-byte alignment raises, and nothing launches."""
+    gen = torch.Generator().manual_seed(9)
+    shape = (1, 2, 32, 64)
+    buf = torch.rand(math.prod(shape) + 1, generator=gen).to(device)
+    ly = _layer(gen, 1, (16, 2, 5, 5), 16, device)
+    before = kernels.launch_counts()["enc1"]
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        encoder.enc1(buf[1:].view(shape), *ly, act="elu", dtype=torch.bfloat16)
+    assert kernels.launch_counts()["enc1"] == before
 
 
 K3_EDGES = [  # stems, images, H, W

@@ -232,3 +232,69 @@ def test_k7_register_overlap_add_matches_plain(rng, n_stems, n_frames, bin_limit
     assert got.shape == ref.shape == (n_stems, rows, n_frames * 1024 + 3072)
     assert not torch.isnan(got).any()
     assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# K1's order of work on the register-radix core
+# ---------------------------------------------------------------------------
+
+
+def _pad(i):
+    """fft2048_radix.cuh::radix_pad: one float2 of padding after every 16."""
+    return i + (i >> 4)
+
+
+def _idft(v: np.ndarray) -> np.ndarray:
+    """Unnormalised inverse DFT along the last axis."""
+    m = np.arange(v.shape[-1])
+    return v @ np.exp(2j * np.pi * np.outer(m, m) / v.shape[-1])
+
+
+def _k1_model(x: np.ndarray, window: np.ndarray) -> np.ndarray:
+    """csrc/stft.cu's order of work on frames x (F, 4096): thread t of a
+    group loads conj z[t + 128 r], z[n] = x[2n] w[2n] + i x[2n+1] w[2n+1];
+    the inverse core's three Stockham passes (radix 16, 16, 8) with the
+    pass tables leave conj Z[t + 128 q] in thread t; Z goes through the
+    padded exchange buffer, and bin k = t + 128 q is split from Z[k] and
+    Z[2048 - k] with tw[k], DC and Nyquist from Z[0]."""
+    tab = kernels.radix_pass_twiddles().astype(np.complex128)
+    t2, t3 = tab[:256].reshape(16, 16), tab[256:].reshape(8, 256)
+    tw = kernels.twiddles4096().astype(np.complex128)
+    xw = (x * window).astype(np.float32).astype(np.float64)
+    v = np.conj(xw[:, 0::2] + 1j * xw[:, 1::2])  # (F, 2048): conj z
+    n_frames = len(v)
+    t = np.arange(128)
+    # Pass 1 (Ns = 1): thread t takes v[t + 128 r], writes 16 t + m.
+    buf = _idft(v.reshape(n_frames, 16, 128).transpose(0, 2, 1)).reshape(n_frames, 2048)
+    # Pass 2 (Ns = 16): twiddle r (t mod 16) / 256, write (t / 16) 256 + t mod 16 + 16 m.
+    u = buf.reshape(n_frames, 16, 128).transpose(0, 2, 1) * t2[:, t % 16].T
+    dst = ((t // 16) * 256 + t % 16)[:, None] + 16 * np.arange(16)
+    buf = np.empty_like(buf)
+    buf[:, dst] = _idft(u)
+    # Pass 3 (Ns = 256): items j < 256, twiddle r j / 2048, write j + 256 m.
+    u = buf.reshape(n_frames, 8, 256).transpose(0, 2, 1) * t3.T
+    y = _idft(u).transpose(0, 2, 1).reshape(n_frames, 2048)  # conj Z, natural order
+    # The exchange: thread t writes conj Z[t + 128 q] at radix_pad(t + 128 q).
+    ex = np.full((n_frames, _pad(2048)), np.nan, np.complex128)
+    ex[:, _pad(np.arange(2048))] = y
+    k = np.arange(1, 2048)
+    zk = np.conj(y[:, k])
+    zc = np.conj(ex[:, _pad(2048 - k)])  # Z[2048 - k]
+    e = 0.5 * (zk + np.conj(zc))
+    o = (zk - np.conj(zc)) / 2j
+    out = np.empty((n_frames, 2049), np.complex128)
+    out[:, 1:2048] = e + tw[k] * o
+    z0 = np.conj(y[:, 0])
+    out[:, 0], out[:, 2048] = z0.real + z0.imag, z0.real - z0.imag
+    return out
+
+
+def test_k1_radix_order_matches_numpy_rfft(rng):
+    """The numpy model of K1's conjugated Stockham passes and its split
+    through the exchange buffer equals np.fft.rfft of the windowed frames
+    to 1e-5 of max|X|."""
+    x = rng.standard_normal((3, 4096)).astype(np.float32) * 0.3
+    window = transform.analysis_window(4096).numpy()
+    got = _k1_model(x, window)
+    ref = np.fft.rfft(x.astype(np.float64) * window, n=4096)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
