@@ -77,8 +77,34 @@ Phases, each of which raises (non-zero exit) on failure:
    canonical U-Net, K6 and K10 each beside its plain version, K10 and the
    canonical head at S * B = 64 images (the round-3 gate's limit), and a
    profile of each route.
+13. The HTTP server (runtime/server.py) started with make_server on port
+   0 in a thread on the card (4 stems, VST config, fp32): /healthz;
+   /separate on the 30 s WAV as npz (the main path's launch counts) and
+   wav8ch (X-Stem-Order); /separate_batch with three tracks of 10, 20 and
+   30 s, which launches K1 and K7 once; stems >= 80 dB against
+   separate.separate per track; 400 (garbage WAV, a stem count the server
+   does not hold, a body that is not an NPZ), 413 and 404.
+14. The batch graphs on four tracks of 20, 30, 45 and 60 s padded to the
+   longest, as the server pads them: separate_nstem_batch at 4 stems (VST
+   config), separate_2stem_batch and separate_3stem_batch (exe config),
+   in bf16 and fp32; the launch counts of one single-track run for the
+   whole batch (K1 and K7 once), per-stem SNR of every track against the
+   plain fp32 batch graph (>= 42 dB bf16, >= 80 dB fp32) and the 2-stem
+   conservation.
+15. The chunked executor: separate_4stem_chunked on 300 s at 8 tiles a
+   chunk within 1e-5 of the monolithic separate.separate (fp32 kernels),
+   and each path's wall time to stems on the host and peak device memory,
+   in fp32 and bf16.
+16. Batch timing: separate_nstem_batch (4 stems, VST config, bf16) over B
+   = 1, 4, 16 and 32 tracks of 60 s a dispatch (CUDA events after a warm
+   call): ms a dispatch, aggregate realtime factor, peak memory; at B =
+   16 the same tracks as 16 single-track calls; the peak's growth a track
+   and the batch the card would hold by it (extrapolated).
 
-Phase 2 also holds K10 against its plain version in float32 and bfloat16,
+Phase 2 also runs K1 and K7 with four 30 s tracks folded into their rows
+(tracks = 4): against their plain versions, twice bit-identical, and each
+track's spectrum, magnitude and audio bit-identical to a launch on that
+track alone. It also holds K10 against its plain version in float32 and bfloat16,
 per pixel to tail.head_error_bound on x's two halves, at the 2-stem exe
 shapes (3 tiles of 256 x 512 x 32) and on the 4-stem VST batch with its
 stems folded (S = 4, x = [skip1 | up5] of the plain chain), where it must
@@ -97,13 +123,17 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -126,7 +156,7 @@ from spleeterrt_tpu_torch.kernels import (
     stft_fused,
     tail,
 )
-from spleeterrt_tpu_torch.runtime import stream
+from spleeterrt_tpu_torch.runtime import executor, server, stream
 from spleeterrt_tpu_torch.utils.metrics import snr_db
 
 SR = 44100
@@ -175,6 +205,16 @@ CONSERVATION_MAX = 1e-5  # |vocals + accompaniment - input|, 2 stems
 NARROW_TRUNK = {"down4": (64, 96), "down5": (96, 192), "down6": (192, 384),
                 "up1": (384, 192), "up2": (384, 96), "up3": (192, 64)}
 HEAD_BATCH_LIMIT = model.PALLAS_HEAD_MAX_BATCH  # K10 vs canonical head here
+# The serving path: tracks folded into the kernels' rows.
+TRACKS_K1_K7 = 4  # phase 2: four 30 s tracks through K1 and K7 at once
+BATCH_SECONDS = (20.0, 30.0, 45.0, 60.0)  # the batch phase's tracks
+BATCH_COUNTS = (1, 4, 16, 32)  # tracks of BATCH_TRACK_SECONDS a dispatch
+BATCH_TRACK_SECONDS = 60.0
+BATCH_SINGLE_AT = 16  # the batch also run as single-track calls
+CHUNKED_SECONDS = 300.0  # the executor's track
+CHUNK_TILES = 8
+CHUNKED_MAX_ERR = 1e-5  # |chunked - monolithic|, fp32 kernels
+SERVER_BATCH_SECONDS = (10.0, 20.0, 30.0)  # /separate_batch's three tracks
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
 # 700 W): a kernel's bound is the larger of its bytes over the memory rate
 # and its operations over the peak rate of its operands' type (float32
@@ -235,14 +275,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def frame_counts(data_size: int, cfg) -> tuple[int, int, int]:
-    """(n_out, n_comp, n_req) frames of the 4-stem graph for padded audio."""
-    n_out = transform.num_output_frames(data_size, cfg.transform)
-    n_comp = transform.num_computed_frames(data_size, cfg.transform)
-    n_req = separate.num_tiles(n_out, cfg.time_step) * cfg.time_step
-    return n_out, n_comp, n_req
-
-
 def plain_separate(stacked, audio: np.ndarray, cfg, device) -> dict:
     """The 4-stem graph of separate.separate with no hand kernel: the
     canonical per-stem U-Net (cuDNN convolutions) in place of the packed
@@ -257,7 +289,7 @@ def plain_separate(stacked, audio: np.ndarray, cfg, device) -> dict:
     ob = torch.tensor(separate.OUT_BAND_4, dtype=torch.float32, device=device)
     swin = transform.synthesis_window(tcfg, device=device)
     if tcfg.hop == stft_fused.HOP:
-        n_out, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+        n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
         spec, mag = stft_fused.stft4096_plain(
             padded, transform.analysis_window(4096, device=device), n_comp,
             n_req, cfg.bin_limit, cfg.time_step,
@@ -331,7 +363,7 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     returns {counter name: report entry without its launch count}."""
     audio = torch.from_numpy(synthetic_audio(SMOKE_SECONDS)).to(device)
     padded = transform.pad_offline(audio, cfg.transform).contiguous()
-    n_out, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+    n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
     awin = transform.analysis_window(4096, device=device)
     swin = transform.synthesis_window(cfg.transform, device=device)
     k1_args = (padded, awin, n_comp, n_req, cfg.bin_limit, cfg.time_step)
@@ -644,7 +676,7 @@ def two_stem_head_inputs(audio: torch.Tensor, device):
     net = with_random_epilogues(model.with_stem_axis(
         cli.load_weights(None, True, SEED, cfg, device)["params"]))
     padded = transform.pad_offline(audio, cfg.transform).contiguous()
-    _, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+    _, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
     _, mag = stft_fused.stft4096_plain(
         padded, transform.analysis_window(4096, device=device), n_comp, n_req,
         cfg.bin_limit, cfg.time_step)
@@ -900,7 +932,7 @@ def phase_main_path(workdir: str, device) -> tuple[dict, dict]:
         torch.from_numpy(x).to(device), cfg.transform).contiguous()
     graph = library_conv_kernels(
         lambda: separate.separate_4stem(stacked, padded, cfg))
-    _, _, n_req = frame_counts(padded.shape[-1], cfg)
+    _, _, n_req = separate.frame_counts(padded.shape[-1], cfg)
     n_img = 4 * (n_req // TIME_STEP)
     t16, f16 = TIME_STEP // 16, BIN_LIMIT // 16
     act4 = torch.zeros((n_img, t16, f16, 128), dtype=torch.bfloat16, device=device)
@@ -969,7 +1001,7 @@ def phase_timing(device) -> None:
 
     # Stage breakdown at the longest input, each kernel beside its plain
     # version on the same inputs.
-    n_out, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+    n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
     awin = transform.analysis_window(4096, device=device)
     swin = transform.synthesis_window(cfg.transform, device=device)
     k1_args = (padded, awin, n_comp, n_req, cfg.bin_limit, cfg.time_step)
@@ -1428,7 +1460,7 @@ def check_library_convs_round3(tag, x, params, cfg, device) -> None:
     padded = transform.pad_offline(torch.from_numpy(x).to(device),
                                    cfg.transform).contiguous()
     graph = library_conv_kernels(lambda: separate.separate_2stem(params, padded, cfg))
-    _, _, n_req = frame_counts(padded.shape[-1], cfg)
+    _, _, n_req = separate.frame_counts(padded.shape[-1], cfg)
     nt, t, f = n_req // cfg.time_step, cfg.time_step, cfg.bin_limit
     nchw = lambda c, d: torch.zeros((nt, t // d, f // d, c), dtype=cfg.compute_dtype,
                                     device=device).permute(0, 3, 1, 2)
@@ -1467,7 +1499,7 @@ def phase_timing_2stem(device) -> None:
         log(f"[2-stem timing] {seconds:.0f} s, {name} route: {ms:.3f} ms per "
             f"separate_2stem, {seconds / (ms / 1e3):.2f}x realtime")
 
-    _, n_comp, n_req = frame_counts(padded.shape[-1], cfg)
+    _, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
     _, mag = stft_fused.stft4096(
         padded, transform.analysis_window(4096, device=device), n_comp, n_req,
         cfg.bin_limit, cfg.time_step)
@@ -1507,6 +1539,371 @@ def phase_timing_2stem(device) -> None:
                            f"route", run)
 
 
+# ---------------------------------------------------------------------------
+# The serving path: K1/K7 over a batch of tracks, the batch graphs, the
+# chunked executor and the HTTP server
+# ---------------------------------------------------------------------------
+
+
+def phase_kernels_tracks(cfg, device) -> None:
+    """K1 and K7 with TRACKS_K1_K7 30 s tracks folded into their rows (VST
+    config) against their plain versions, each run twice (bit-identical),
+    and each track's spectrum, magnitude images and audio bit-identical to
+    a launch on that track alone."""
+    b = TRACKS_K1_K7
+    audio = torch.stack([torch.from_numpy(synthetic_audio(SMOKE_SECONDS, SEED + i))
+                         for i in range(b)]).to(device)
+    padded = transform.pad_offline(audio, cfg.transform).contiguous()
+    rows = padded.reshape(2 * b, -1)
+    n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
+    nt = n_req // cfg.time_step
+    awin = transform.analysis_window(4096, device=device)
+    swin = transform.synthesis_window(cfg.transform, device=device)
+    k1_args = (rows, awin, n_comp, n_req, cfg.bin_limit, cfg.time_step, b)
+    spec, mag = stft_fused.stft4096(*k1_args)
+    again = stft_fused.stft4096(*k1_args)
+    pspec, pmag = stft_fused.stft4096_plain(*k1_args)
+    torch.cuda.synchronize()
+    err = max((spec - pspec).abs().max().item(), (mag - pmag).abs().max().item())
+    bound = K1_REL_BOUND * pspec.abs().max().item()
+    same = torch.equal(spec, again[0]) and torch.equal(mag, again[1])
+    log(f"[K1 stft4096, {b} tracks] spec {tuple(spec.shape)} mag {tuple(mag.shape)}: "
+        f"max |kernel - plain| = {err:.3e}, bound {bound:.3e}; two runs "
+        f"bit-identical: {same}")
+    if not (err <= bound and same):
+        raise AssertionError(f"K1 with {b} tracks disagrees or is not deterministic")
+    del again, pmag
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    masks = torch.rand((4, b * nt, 2, cfg.time_step, cfg.bin_limit), generator=gen,
+                       device=device)
+    ob = torch.tensor(separate.OUT_BAND_4, device=device)
+    k7_args = (pspec, masks, ob, swin, n_out, b)
+    check_inverse(f"K7 masked_istft4096, {b} tracks", stft_fused.masked_istft4096,
+                  stft_fused.masked_istft4096_plain, k7_args)
+    y = stft_fused.masked_istft4096(*k7_args)
+    for i in range(b):
+        r, img = slice(2 * i, 2 * i + 2), slice(i * nt, (i + 1) * nt)
+        spec1, mag1 = stft_fused.stft4096(rows[r].contiguous(), *k1_args[1:6])
+        y1 = stft_fused.masked_istft4096(pspec[r].contiguous(),
+                                         masks[:, img].contiguous(), ob, swin, n_out)
+        if not (torch.equal(spec[r], spec1) and torch.equal(mag[img], mag1)
+                and torch.equal(y[:, r], y1)):
+            raise AssertionError(f"K1/K7 track {i} differs from its lone launch")
+    log(f"[K1/K7, {b} tracks] each track's spectrum, magnitude and audio "
+        f"bit-identical to its lone launch: True")
+
+
+def padded_batch(xs: list[np.ndarray], cfg, device) -> tuple[torch.Tensor, int]:
+    """(2, n) tracks zero-padded to the longest, as the server pads them,
+    then pre-padded (transform.pad_offline) on `device` -> (the (B, 2,
+    data_size) batch, preshift)."""
+    n_max = max(x.shape[1] for x in xs)
+    batch = np.stack([np.pad(x, ((0, 0), (0, n_max - x.shape[1]))) for x in xs])
+    padded = transform.pad_offline(torch.from_numpy(batch).to(device), cfg.transform)
+    return padded.contiguous(), transform.offline_pad_sizes(n_max, cfg.transform)[0]
+
+
+def counted_run(tag: str, fn, per_run: dict):
+    """fn() with the launch counts set to 0 just before and read just
+    after; they must be per_run's."""
+    kernels.reset_launch_counts()
+    out = fn()
+    launches = kernels.launch_counts()
+    log(f"[{tag}] launches {launches}")
+    if launches != expected_launches(per_run):
+        raise AssertionError(f"{tag}: launches {launches}, expected {per_run}")
+    return out
+
+
+def check_batch_snr(tag: str, xs, preshift: int, names, got: dict, plain) -> None:
+    """Per-stem SNR of each track's stems ({label: (B, S, 2, L) on the
+    card}) against the plain fp32 graph's, cropped to each track."""
+    bars = {"bf16": SNR_BF16_MIN_DB, "fp32": SNR_FP32_MIN_DB}
+    worst = {k: float("inf") for k in got}
+    for i, x in enumerate(xs):
+        crop = slice(preshift, preshift + x.shape[1])
+        for s, stem in enumerate(names):
+            ref = plain[i, s, :, crop].cpu().numpy()
+            for label, out in got.items():
+                db = snr_db(out[i, s, :, crop].cpu().numpy(), ref)
+                worst[label] = min(worst[label], db)
+                if not db >= bars[label]:
+                    raise AssertionError(f"{tag} track {i} {stem}: {label} SNR "
+                                         f"{db:.2f} dB below {bars[label]}")
+    log(f"[{tag}] per-stem SNR of {len(xs)} tracks vs the plain fp32 graph: "
+        + ", ".join(f"{k} kernels >= {v:.2f} dB (bar {bars[k]})"
+                    for k, v in worst.items()))
+
+
+def batch_segments(seconds) -> list[np.ndarray]:
+    """Tracks of the given lengths cut at different offsets out of the
+    seed-SEED signal every other phase separates: each its own content,
+    and the bf16 bar means what it means there (with random weights, the
+    bf16 SNR of a stem depends on the content; PERF.md, Findings)."""
+    step = 5 * SR  # track i starts i * 5 s in
+    x = synthetic_audio(max(seconds) + 5 * len(seconds))
+    return [x[:, i * step : i * step + int(sec * SR)] for i, sec in enumerate(seconds)]
+
+
+def phase_batch(device) -> None:
+    """The batch graphs on tracks of BATCH_SECONDS padded to the longest:
+    separate_nstem_batch at 4 stems (VST config), separate_2stem_batch and
+    separate_3stem_batch (exe config), bf16 and fp32, each with its launch
+    counts for the whole batch and per-stem SNR of every track against the
+    plain fp32 batch graph; the 2-stem conservation."""
+    xs = batch_segments(BATCH_SECONDS)
+    stacked = random_stacked(device)
+    nets3 = cli.load_weights(None, True, SEED, exe_config(3, torch.float32), device)
+    params2 = cli.load_weights(None, True, SEED, exe_config(2, torch.float32),
+                               device)["params"]
+    graphs = (
+        ("batch 4 stems", vst_config, MAIN_PATH_LAUNCHES, lambda b, cfg: (
+            separate.separate_nstem_batch(stacked, b, cfg, separate.OUT_BAND_4))),
+        ("batch 2 stems", lambda d: exe_config(2, d), MAIN_PATH_LAUNCHES,
+         lambda b, cfg: separate.separate_2stem_batch(params2, b, cfg)),
+        ("batch 3 stems", lambda d: exe_config(3, d), THREE_STEM_LAUNCHES,
+         lambda b, cfg: separate.separate_3stem_batch(
+             nets3["params4"], nets3["params2"], b, cfg)),
+    )
+    for tag, config, per_run, graph in graphs:
+        cfg32 = config(torch.float32)
+        batch, preshift = padded_batch(xs, cfg32, device)
+        got = {}
+        for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            cfg = config(dtype)
+            got[label] = counted_run(f"{tag}, {len(xs)} tracks, {label}",
+                                     lambda: graph(batch, cfg), per_run)
+            if not torch.all(torch.isfinite(got[label])):
+                raise AssertionError(f"{tag} {label}: non-finite stems")
+        with plain_graph():
+            plain = graph(batch, cfg32)
+        check_batch_snr(tag, xs, preshift, cfg32.stem_names, got, plain)
+        # Each track against its own single-track run on the same padded
+        # input: the fold of tracks into rows and images changes nothing
+        # but the mid trunk's cuDNN algorithms.
+        for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            bar = SNR_BF16_MIN_DB if label == "bf16" else SNR_FP32_MIN_DB
+            worst = float("inf")
+            for i, x in enumerate(xs):
+                one = graph(batch[i : i + 1], config(dtype))[0]
+                crop = slice(preshift, preshift + x.shape[1])
+                worst = min(worst, min(
+                    snr_db(got[label][i, s, :, crop].cpu().numpy(),
+                           one[s, :, crop].cpu().numpy())
+                    for s in range(one.shape[0])))
+            log(f"[{tag}] {label}: every track against its own single-track "
+                f"run >= {worst:.2f} dB (bar {bar})")
+            if not worst >= bar:
+                raise AssertionError(f"{tag} {label}: a track differs from its "
+                                     f"single-track run")
+        if tag == "batch 2 stems":
+            err = max((got["bf16"][i].sum(0)[:, preshift : preshift + x.shape[1]]
+                       - torch.from_numpy(x).to(device)).abs().max().item()
+                      for i, x in enumerate(xs))
+            log(f"[{tag}] conservation max |vocals + accompaniment - input| = "
+                f"{err:.3e} (<= {CONSERVATION_MAX})")
+            if not err <= CONSERVATION_MAX:
+                raise AssertionError("batch 2 stems: vocals + accompaniment != input")
+        del got, plain, batch
+
+
+def phase_batch_timing(device) -> None:
+    """separate_nstem_batch at 4 stems (VST config, bf16) over B tracks of
+    BATCH_TRACK_SECONDS for each B of BATCH_COUNTS: ms a dispatch (CUDA
+    events, best of three after a warm call), the aggregate realtime
+    factor and peak device memory; at B = BATCH_SINGLE_AT the same tracks
+    as single-track calls."""
+    cfg = vst_config(torch.bfloat16)
+    stacked = random_stacked(device)
+    n = int(BATCH_TRACK_SECONDS * SR)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    peaks = {}
+    for b in BATCH_COUNTS:
+        audio = torch.randn((b, 2, n), generator=gen, device=device) * 0.3
+        padded = transform.pad_offline(audio, cfg.transform).contiguous()
+        del audio
+        run = lambda: separate.separate_nstem_batch(stacked, padded, cfg,
+                                                    separate.OUT_BAND_4)
+        run()  # warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        run()
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated(device)
+        ms = min(cuda_ms(run, iters=3, warmup=0) for _ in range(3))
+        log(f"[batch timing] B = {b} x {BATCH_TRACK_SECONDS:.0f} s: {ms:.3f} ms a "
+            f"dispatch, aggregate {b * BATCH_TRACK_SECONDS / (ms / 1e3):.2f}x "
+            f"realtime, peak memory {peaks[b] / 2**30:.3f} GiB")
+        if b == BATCH_SINGLE_AT:
+            singles = lambda: [separate.separate_4stem(stacked, padded[i], cfg)
+                               for i in range(b)]
+            one_ms = min(cuda_ms(singles, iters=2, warmup=1) for _ in range(2))
+            log(f"[batch timing] the same {b} tracks as {b} single-track calls: "
+                f"{one_ms:.3f} ms, aggregate "
+                f"{b * BATCH_TRACK_SECONDS / (one_ms / 1e3):.2f}x realtime; "
+                f"batch / singles {ms / one_ms:.3f}")
+        del padded
+        torch.cuda.empty_cache()
+    lo, hi = BATCH_COUNTS[-2], BATCH_COUNTS[-1]
+    per_track = (peaks[hi] - peaks[lo]) / (hi - lo)
+    total = torch.cuda.get_device_properties(device).total_memory
+    fits = int(lo + (total - peaks[lo]) // per_track) if per_track > 0 else None
+    log(f"[batch timing] peak memory grows {per_track / 2**30:.4f} GiB a "
+        f"{BATCH_TRACK_SECONDS:.0f} s track (B = {lo} to {hi}); the "
+        f"{total / 2**30:.1f} GiB card would hold B = {fits} by that slope "
+        f"(extrapolated, not run)")
+
+
+def phase_executor(device) -> None:
+    """separate_4stem_chunked on CHUNKED_SECONDS at CHUNK_TILES (VST
+    config): fp32 kernels within CHUNKED_MAX_ERR of the monolithic
+    separate.separate; each path's wall time to stems on the host and its
+    peak device memory, in fp32 and bf16."""
+    stacked = random_stacked(device)
+    rng = np.random.default_rng(SEED)
+    x = (rng.standard_normal((2, int(CHUNKED_SECONDS * SR))) * 0.3).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = vst_config(dtype)
+        paths = {
+            "chunked": lambda: executor.separate_4stem_chunked(
+                stacked, x, cfg, chunk_tiles=CHUNK_TILES),
+            "monolithic": lambda: np.stack([v.cpu().numpy() for v in separate.separate(
+                x, stacked_params=stacked, cfg=cfg, device=device).values()]),
+        }
+        outs = {}
+        for name, fn in paths.items():
+            fn()  # warm up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(device)
+            log(f"[executor] {CHUNKED_SECONDS:.0f} s, {str(dtype)[6:]}, {name}"
+                f"{f' ({CHUNK_TILES} tiles a chunk)' * (name == 'chunked')}: "
+                f"{wall:.3f} ms to stems on the host, peak memory "
+                f"{peak / 2**30:.3f} GiB")
+        err = float(np.abs(outs["chunked"] - outs["monolithic"]).max())
+        log(f"[executor] {str(dtype)[6:]}: max |chunked - monolithic| = {err:.3e}"
+            + f" (<= {CHUNKED_MAX_ERR})" * (dtype == torch.float32))
+        if outs["chunked"].shape != (4, *x.shape) or not np.all(
+                np.isfinite(outs["chunked"])):
+            raise AssertionError("executor: wrong shape or non-finite stems")
+        if dtype == torch.float32 and not err <= CHUNKED_MAX_ERR:
+            raise AssertionError("executor: chunked and monolithic disagree")
+
+
+def http(url: str, data: bytes | None = None) -> tuple[int, dict, bytes]:
+    """GET (data None) or POST -> (status, headers, body), HTTP errors too."""
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def phase_server(workdir: str, device) -> None:
+    """make_server on port 0 in a thread, on the card (4 stems, VST config,
+    fp32 so that its stems are held to SNR_FP32_MIN_DB against
+    separate.separate): /healthz; /separate as npz and wav8ch on the 30 s
+    WAV; /separate_batch with three tracks, one K1 and one K7 launch; 400,
+    413 and 404."""
+    cfg = vst_config(torch.float32)
+    stacked = random_stacked(device)
+    service = server.SeparationService(cfg, {"stacked_params": stacked},
+                                       device=device)
+    srv = server.make_server("127.0.0.1", 0, service)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        code, _, body = http(f"{base}/healthz")
+        health = json.loads(body)
+        log(f"[server] /healthz {code} {health}")
+        if code != 200 or health != {"status": "ok",
+                                     "devices": torch.cuda.device_count()}:
+            raise AssertionError("server: /healthz")
+
+        x = synthetic_audio(SMOKE_SECONDS)
+        song = os.path.join(workdir, "server.wav")
+        audio_io.write_wav(song, x)
+        with open(song, "rb") as f:
+            wav = f.read()
+        solo = {k: v.cpu().numpy() for k, v in separate.separate(
+            x, stacked_params=stacked, cfg=cfg, device=device).items()}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        code, _, body = http(f"{base}/separate?format=npz", wav)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        if code != 200 or launches != expected_launches(MAIN_PATH_LAUNCHES):
+            raise AssertionError(f"server /separate: {code}, launches {launches}")
+        out = np.load(io.BytesIO(body))
+        worst = min(snr_db(out[k], solo[k]) for k in cfg.stem_names)
+        log(f"[server] /separate npz {code} in {wall:.3f} ms "
+            f"({SMOKE_SECONDS:.0f} s, 4 stems), "
+            f"launches {launches}; SNR vs separate.separate >= {worst:.2f} dB")
+        if set(out.files) != set(cfg.stem_names) or not worst >= SNR_FP32_MIN_DB:
+            raise AssertionError("server /separate: stems")
+        # Another request: cuDNN's transposed convolutions in the mid trunk
+        # need not sum in the same order twice, so compare by SNR.
+        code, headers, body = http(f"{base}/separate", wav)
+        y = audio_io.read_wav(body).samples
+        order = headers.get("X-Stem-Order")
+        worst = min(snr_db(y[2 * s : 2 * s + 2], solo[k])
+                    for s, k in enumerate(cfg.stem_names))
+        log(f"[server] /separate wav8ch {code}, {y.shape[0]} channels, "
+            f"X-Stem-Order {order}; SNR vs separate.separate >= {worst:.2f} dB")
+        if (code != 200 or order != ",".join(cfg.stem_names)
+                or y.shape != (8, x.shape[1]) or not worst >= SNR_FP32_MIN_DB):
+            raise AssertionError("server /separate wav8ch")
+
+        xs = {f"t{i}": synthetic_audio(sec, SEED + 10 + i)
+              for i, sec in enumerate(SERVER_BATCH_SECONDS)}
+        buf = io.BytesIO()
+        np.savez(buf, **xs)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        code, _, body = http(f"{base}/separate_batch", buf.getvalue())
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        if code != 200 or launches != expected_launches(MAIN_PATH_LAUNCHES):
+            raise AssertionError(f"server /separate_batch: {code}, launches {launches}")
+        out = np.load(io.BytesIO(body))
+        worst = float("inf")
+        for name, xt in xs.items():
+            one = separate.separate(xt, stacked_params=stacked, cfg=cfg, device=device)
+            for stem, ref in one.items():
+                got = out[f"{name}/{stem}"]
+                if got.shape != xt.shape:
+                    raise AssertionError(f"server batch {name}/{stem}: {got.shape}")
+                worst = min(worst, snr_db(got, ref.cpu().numpy()))
+        log(f"[server] /separate_batch {code}, {len(xs)} tracks of "
+            f"{SERVER_BATCH_SECONDS} s in {wall:.3f} ms, launches {launches}; "
+            f"SNR vs separate.separate per track >= {worst:.2f} dB")
+        if not worst >= SNR_FP32_MIN_DB:
+            raise AssertionError("server /separate_batch: stems")
+
+        errors = {
+            "garbage WAV": (http(f"{base}/separate", b"not a wav")[0], 400),
+            "bad stems": (http(f"{base}/separate?stems=2", wav)[0], 400),
+            "stems not a number": (http(f"{base}/separate?stems=x", wav)[0], 400),
+            "bad NPZ": (http(f"{base}/separate_batch", b"PK\x03\x04junk")[0], 400),
+            "unknown path": (http(f"{base}/nowhere", wav)[0], 404),
+        }
+        service.max_body_bytes = 1024
+        errors["oversized body"] = (http(f"{base}/separate", b"\0" * 2048)[0], 413)
+        log(f"[server] error contract: " + ", ".join(
+            f"{k} {got} (expected {want})" for k, (got, want) in errors.items()))
+        if any(got != want for got, want in errors.values()):
+            raise AssertionError("server: error contract")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1519,18 +1916,23 @@ def main() -> int:
     phase_build()
     cfg = vst_config(torch.bfloat16)
     measured = phase_kernels(cfg, device)
+    phase_kernels_tracks(cfg, device)
     with tempfile.TemporaryDirectory() as workdir:
         cli_stems, launches = phase_main_path(workdir, device)
         stream_launches = phase_stream_cli(workdir, device)
         files = write_weight_files(workdir)
         phase_stems_cli(workdir, files, device)
         round3_launches = phase_round3(workdir, files, device)
+        phase_server(workdir, device)
+    phase_batch(device)
+    phase_executor(device)
     phase_quality(cli_stems, device)
     phase_stream_quality(device)
     overlap2_launches = phase_overlap2(device)
     phase_timing(device)
     phase_stream_timing(device)
     phase_timing_2stem(device)
+    phase_batch_timing(device)
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
     # 2-stem CLI's round-3 route for K10.

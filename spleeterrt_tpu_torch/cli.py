@@ -142,8 +142,7 @@ def main(argv=None) -> int:
     from spleeterrt_tpu_torch.core import separate
     from spleeterrt_tpu_torch.io import audio as audio_io, resample
 
-    # Fail fast on undecodable input or an unported graph before any
-    # device or weight work.
+    # Fail fast on undecodable input before any device or weight work.
     if not os.path.exists(args.audio):
         raise SystemExit(f"no such file: {args.audio}")
     try:
@@ -156,7 +155,6 @@ def main(argv=None) -> int:
         num_stems=args.stems,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
     )
-    separate.check_ported(cfg)
     device = open_device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"spleeterrt-tpu-torch: device {device} ({name})")

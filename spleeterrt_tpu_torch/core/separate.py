@@ -22,7 +22,17 @@ U-Net emits per-stem masks; one fused masked iSTFT kernel emits
 overlap-added audio for every stem. At any other hop of a 4096-point FFT
 (in practice `TransformConfig(overlap=2)`) it is the reference's
 non-fused branch: a plain torch.fft STFT, the U-Net, the masked inverse
-FFT kernel K9 with frames out, and a plain overlap-add.
+FFT kernel K9 with frames out, and a plain overlap-add; at any other FFT
+size the reference's canonical graph, one `transform.istft` a stem.
+
+Each graph has a batched form over B equal-length tracks (B, 2, n), the
+server's serving shape (`separate_nstem_batch`, `separate_2stem_batch`,
+`separate_3stem_batch`). At hop 1024 the tracks fold into the kernels'
+rows, track-major: K1 writes each (track, tile) as one U-Net image and K7
+reads the masks of the B * n_tiles images as the U-Net emits them, so one
+launch of each serves the batch and no interleave pass runs between
+them. The single-track fused graphs are the B = 1 case; at any other hop
+the batch runs track by track.
 
 Scale conventions: with core/transform.py's windows, `abs(stft(x))` equals
 the `hypotf(re, im) * FFTSIZE` magnitude the C code computes
@@ -50,12 +60,6 @@ from spleeterrt_tpu_torch.kernels import pallas_fft, stft_fused
 # stem except bass at 0.0 (VST/Source/Spleeter4Stems.c:73,281).
 OUT_BAND_4 = (0.25, 0.0, 0.25, 0.25)  # drums, bass, accompaniment, vocals
 OUT_BAND_5 = (0.25, 0.25, 0.0, 0.25, 0.25)  # vocals, drums, bass, piano, other
-
-_NOT_PORTED = (
-    "{} is not ported to the PyTorch package yet; see ROADMAP.md "
-    "(the reference package spleeterrt_tpu has it)"
-)
-
 
 def num_tiles(n_frames: int, time_step: int) -> int:
     """ceil; the reference always runs one (possibly zero-padded) tail tile
@@ -123,24 +127,64 @@ def compute_masks_multi(
     return torch.stack([tiles_to_frames(m, spec.shape[-2]) for m in masks])
 
 
-def _fused(cfg: SeparatorConfig) -> bool:
+def fused_transform(cfg: SeparatorConfig) -> bool:
     """The fused kernels' transform: FFT 4096, hop 1024 (K1 and K7)."""
     return cfg.transform.fft_size == stft_fused.N and cfg.transform.hop == stft_fused.HOP
 
 
-def _fused_stft(audio: torch.Tensor, cfg: SeparatorConfig):
-    """K1 over pre-padded audio (2, data_size) -> (spec (2, n_req, 2049),
-    magnitude tiles (n_tiles, 2, T, bin_limit), n_out frames)."""
+def frame_counts(data_size: int, cfg: SeparatorConfig) -> tuple[int, int, int]:
+    """(n_out, n_comp, n_req) of pre-padded audio: the spectrogram's frames,
+    those computed (the rest are zero), and n_out rounded up to whole
+    tiles."""
     tcfg = cfg.transform
-    data_size = audio.shape[-1]
     n_out = transform.num_output_frames(data_size, tcfg)
     n_comp = transform.num_computed_frames(data_size, tcfg)
-    n_req = num_tiles(n_out, cfg.time_step) * cfg.time_step
-    spec, mag = stft_fused.stft4096(
-        audio, transform.analysis_window(tcfg.fft_size, device=audio.device),
-        n_comp, n_req, cfg.bin_limit, cfg.time_step,
+    return n_out, n_comp, num_tiles(n_out, cfg.time_step) * cfg.time_step
+
+
+def fused_stft(
+    audio: torch.Tensor, cfg: SeparatorConfig, n_comp: int, n_req: int,
+    tracks: int = 1,
+):
+    """K1 over (rows, n) audio, `tracks` tracks of rows / tracks channels:
+    (spec (rows, n_req, 2049), magnitude tiles (tracks * n_req / T,
+    rows / tracks, T, bin_limit)), frames from n_comp on zero."""
+    return stft_fused.stft4096(
+        audio, transform.analysis_window(stft_fused.N, device=audio.device),
+        n_comp, n_req, cfg.bin_limit, cfg.time_step, tracks,
     )
-    return spec, mag, n_out
+
+
+def _nstem_fused(
+    stacked_params: Params,
+    tracks: torch.Tensor,  # (B, 2, data_size) pre-padded, equal lengths
+    cfg: SeparatorConfig,
+    out_band: tuple[float, ...],
+    stem_mode: int,
+) -> torch.Tensor:
+    """The fused N-stem body over B tracks -> (B, S, 2, out_len), a view:
+    one K1 with the tracks folded into its rows, one U-Net pass over the
+    B * n_tiles images (any route), one K7 (the reference package's
+    `_nstem_batch_fused`, whose track interleave the kernels' layout makes
+    unnecessary)."""
+    b, rows, data_size = tracks.shape
+    dev = tracks.device
+    n_out, n_comp, n_req = frame_counts(data_size, cfg)
+    spec, mag = fused_stft(tracks.reshape(b * rows, data_size), cfg, n_comp,
+                           n_req, b)
+    masks = multi_stem_masks(stacked_params, mag, stem_mode, cfg.compute_dtype,
+                             cfg.sigmoid)  # (S, B * n_tiles, 2, T, F)
+    out = stft_fused.masked_istft4096(
+        spec, masks, torch.tensor(out_band, dtype=torch.float32, device=dev),
+        transform.synthesis_window(cfg.transform, device=dev), n_out, b,
+    )  # (S, B * 2, out_len)
+    return out.view(out.shape[0], b, rows, -1).transpose(0, 1)
+
+
+def _per_track(graph, tracks: torch.Tensor) -> torch.Tensor:
+    """A single-track graph over each of (B, 2, n) tracks -> (B, ...): the
+    reference's vmap, each track on the port's kernels."""
+    return torch.stack([graph(a) for a in tracks])
 
 
 def separate_nstem(
@@ -153,32 +197,72 @@ def separate_nstem(
     (S, 2ch, out_len) with out_len = n_frames * hop + fft_size - hop >=
     data_size.
 
+    At hop 1024 the B = 1 case of :func:`separate_nstem_batch`. At any
+    other hop of a 4096-point FFT: the plain STFT, the U-Net, K9 and the
+    overlap-add; at any other FFT size the canonical graph, one
+    `transform.istft` a stem (the reference's vmap over stems).
+
     Tensors on a CUDA device run the kernels; CPU tensors run their plain
     versions (kernels/stft_fused.py, kernels/pallas_fft.py)."""
     tcfg = cfg.transform
-    if tcfg.fft_size != stft_fused.N:
-        raise NotImplementedError(
-            _NOT_PORTED.format("a transform other than FFT 4096")
-        )
+    if fused_transform(cfg):
+        return _nstem_fused(stacked_params, audio[None], cfg, out_band,
+                            STEM_MODE_4)[0]
     data_size = audio.shape[-1]
     dev = audio.device
-    out_band_t = torch.tensor(out_band, dtype=torch.float32, device=dev)
-    if tcfg.hop != stft_fused.HOP:
-        spec = transform.stft(audio, tcfg, data_size)
-        masks = compute_masks_multi(stacked_params, spec, cfg, STEM_MODE_4)
+    spec = transform.stft(audio, tcfg, data_size)
+    masks = compute_masks_multi(stacked_params, spec, cfg, STEM_MODE_4)
+    if tcfg.fft_size == pallas_fft.N:
         frames = pallas_fft.masked_irfft4096(
-            spec, masks, out_band_t, cfg.bin_limit,
-            transform.synthesis_window(tcfg, device=dev),
+            spec, masks, torch.tensor(out_band, dtype=torch.float32, device=dev),
+            cfg.bin_limit, transform.synthesis_window(tcfg, device=dev),
         )
         return transform.overlap_add(frames, tcfg)
-    spec, mag, n_out = _fused_stft(audio, cfg)
-    masks = multi_stem_masks(
-        stacked_params, mag, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
-    )  # (S, n_tiles, 2, T, F)
-    return stft_fused.masked_istft4096(
-        spec, masks, out_band_t, transform.synthesis_window(tcfg, device=dev),
-        n_out,
-    )
+    return torch.stack([
+        transform.istft(apply_mask(spec, m, cfg, w), tcfg)
+        for m, w in zip(masks, out_band)
+    ])
+
+
+def separate_nstem_batch(
+    stacked_params: Params,
+    tracks: torch.Tensor,  # (B, 2, data_size) pre-padded, equal lengths
+    cfg: SeparatorConfig,
+    out_band: tuple[float, ...],
+) -> torch.Tensor:
+    """Batched multi-track N-stem graph -> (B, S, 2, out_len).
+
+    At hop 1024 the tracks fold into the kernels' rows: one K1, one U-Net
+    pass over B * n_tiles images and one K7 serve the whole batch. At any
+    other hop each track runs :func:`separate_nstem` (its kernels, K9
+    among them)."""
+    if fused_transform(cfg):
+        return _nstem_fused(stacked_params, tracks, cfg, out_band, STEM_MODE_4)
+    return _per_track(
+        lambda a: separate_nstem(stacked_params, a, cfg, out_band), tracks)
+
+
+def _residual(tracks: torch.Tensor, vocal: torch.Tensor) -> torch.Tensor:
+    """The accompaniment: the (padded) input minus the vocals in time."""
+    return F.pad(tracks, (0, vocal.shape[-1] - tracks.shape[-1])) - vocal
+
+
+def separate_2stem_batch(
+    params: Params,  # one net, no stem axis
+    tracks: torch.Tensor,  # (B, 2, data_size) pre-padded, equal lengths
+    cfg: SeparatorConfig,
+) -> torch.Tensor:
+    """Batched 2-stem graph -> (B, 2 stems, 2ch, out_len), the reference's
+    offline 2-stem semantics per track (Executable/main.c:773,779-808).
+
+    At hop 1024: K1, the U-Net over B * n_tiles images and K7 with one
+    stem (`unaffected_weight` out of band), then accompaniment = track -
+    vocals. At any other hop each track runs :func:`separate_2stem`."""
+    if not fused_transform(cfg):
+        return _per_track(lambda a: separate_2stem(params, a, cfg), tracks)
+    vocal = _nstem_fused(with_stem_axis(params), tracks, cfg,
+                         (cfg.unaffected_weight,), STEM_MODE_2)[:, 0]
+    return torch.stack([vocal, _residual(tracks, vocal)], dim=1)
 
 
 def separate_2stem(
@@ -188,24 +272,68 @@ def separate_2stem(
     accompaniment = input - vocals in the time domain (Executable/main.c:
     779-808). Returns (2, 2ch, out_len).
 
-    At hop 1024: K1, the U-Net (any route), K7 with one stem. At any other
-    hop: the plain STFT, the U-Net and `transform.istft` (K8 at FFT 4096)."""
-    data_size = audio.shape[-1]
+    At hop 1024 the B = 1 case of :func:`separate_2stem_batch`. At any
+    other hop: the plain STFT, the U-Net and `transform.istft` (K8 at FFT
+    4096)."""
+    if fused_transform(cfg):
+        return separate_2stem_batch(params, audio[None], cfg)[0]
     tcfg = cfg.transform
-    if _fused(cfg):
-        spec, mag, n_out = _fused_stft(audio, cfg)
-        masks = single_net_masks(params, mag, cfg, STEM_MODE_2)
-        uw = torch.tensor([cfg.unaffected_weight], device=audio.device)
-        vocal = stft_fused.masked_istft4096(
-            spec, masks, uw, transform.synthesis_window(tcfg, device=audio.device),
-            n_out,
-        )[0]
-    else:
-        spec = transform.stft(audio, tcfg, data_size)
-        masks = compute_masks(params, spec, cfg, STEM_MODE_2)
-        vocal = transform.istft(apply_mask(spec, masks, cfg), tcfg)
-    residual = F.pad(audio, (0, vocal.shape[-1] - data_size)) - vocal
-    return torch.stack([vocal, residual])
+    spec = transform.stft(audio, tcfg, audio.shape[-1])
+    masks = compute_masks(params, spec, cfg, STEM_MODE_2)
+    vocal = transform.istft(apply_mask(spec, masks, cfg), tcfg)
+    return torch.stack([vocal, _residual(audio, vocal)])
+
+
+def _separate_3stem_fused(
+    params4: Params, params2: Params, tracks: torch.Tensor, cfg: SeparatorConfig,
+) -> torch.Tensor:
+    """The fused two-pass 3-stem graph over B tracks (B, 2, n) -> (B, 3,
+    2ch, out_len), the reference package's `_separate_3stem_fused_tracks`:
+    one K1, both U-Net passes over B * n_tiles images, one K7 launch for
+    all three stems, each written as a mask on the ORIGINAL spectrum,
+    which is exact because masks scale the complex bins by real factors:
+
+      drums    = istft(dm . s            | uw . s          out of band)
+      vocals   = istft((1-dm) vm . s     | uw (1-uw) . s   out of band)
+      residual = istft((1-dm) . s        | (1-uw) . s      out of band)
+      accompaniment = residual - vocals
+
+    Pass 2's magnitude |(1-dm) . s| is taken in band from K1's spectrum,
+    track by track in the tiles' layout; the residual spectrum is never
+    formed."""
+    b, rows, data_size = tracks.shape
+    dev = tracks.device
+    uw = cfg.unaffected_weight
+    n_out, n_comp, n_req = frame_counts(data_size, cfg)
+    t, f = cfg.time_step, cfg.bin_limit
+    nt = n_req // t
+    spec, mag = fused_stft(tracks.reshape(b * rows, data_size), cfg, n_comp,
+                           n_req, b)
+    dm = single_net_masks(params4, mag, cfg, STEM_MODE_4)  # (1, B * nt, 2, T, F)
+    inv = 1.0 - dm  # the residual's in-band factor
+    in_band = (spec[:, :, :f].reshape(b, rows, nt, t, f).transpose(1, 2)
+               .reshape(b * nt, rows, t, f))
+    mag2 = (in_band * inv[0]).abs().contiguous()
+    vm = single_net_masks(params2, mag2, cfg, STEM_MODE_2)
+    masks3 = torch.cat([dm, inv * vm, inv])
+    out_band = torch.tensor([uw, uw * (1.0 - uw), 1.0 - uw], device=dev)
+    drums, vocals, residual = stft_fused.masked_istft4096(
+        spec, masks3, out_band,
+        transform.synthesis_window(cfg.transform, device=dev), n_out, b,
+    ).view(3, b, rows, -1)
+    return torch.stack([drums, vocals, residual - vocals], dim=1)
+
+
+def separate_3stem_batch(
+    params4: Params, params2: Params, tracks: torch.Tensor, cfg: SeparatorConfig,
+) -> torch.Tensor:
+    """Batched two-pass 3-stem graph -> (B, 3, 2ch, out_len) ordered
+    (drums, vocals, accompaniment), Executable/main.c:845-970 per track:
+    the fused graph at hop 1024, :func:`separate_3stem` per track at any
+    other hop."""
+    if fused_transform(cfg):
+        return _separate_3stem_fused(params4, params2, tracks, cfg)
+    return _per_track(lambda a: separate_3stem(params4, params2, a, cfg), tracks)
 
 
 def separate_3stem(
@@ -217,48 +345,22 @@ def separate_3stem(
     istft(residual) - vocals in time. Returns (3, 2ch, out_len) ordered
     (drums, vocals, accompaniment).
 
-    At hop 1024 it is the reference package's fused form
-    (`_separate_3stem_fused_tracks`): one K1, both U-Net passes, one K7
-    launch for all three stems, each written as a mask on the ORIGINAL
-    spectrum, which is exact because masks scale the complex bins by real
-    factors:
-
-      drums    = istft(dm . s            | uw . s          out of band)
-      vocals   = istft((1-dm) vm . s     | uw (1-uw) . s   out of band)
-      residual = istft((1-dm) . s        | (1-uw) . s      out of band)
-      accompaniment = residual - vocals
-
-    Pass 2's magnitude |(1-dm) . s| is taken in band from K1's spectrum; the
-    residual spectrum is never formed. At any other hop: the canonical
-    graph with three `transform.istft` calls (K8 at FFT 4096)."""
-    data_size = audio.shape[-1]
+    At hop 1024 the B = 1 case of the fused batch graph
+    (:func:`separate_3stem_batch`), as the reference package's
+    `_separate_3stem_fused` is. At any other hop: the canonical graph
+    with three `transform.istft` calls (K8 at FFT 4096)."""
+    if fused_transform(cfg):
+        return _separate_3stem_fused(params4, params2, audio[None], cfg)[0]
     tcfg = cfg.transform
-    uw = cfg.unaffected_weight
-    if not _fused(cfg):
-        spec = transform.stft(audio, tcfg, data_size)
-        drum_masks = compute_masks(params4, spec, cfg, STEM_MODE_4)
-        drum_spec = apply_mask(spec, drum_masks, cfg)
-        residual_spec = spec - drum_spec
-        drums = transform.istft(drum_spec, tcfg)
-        vocal_masks = compute_masks(params2, residual_spec, cfg, STEM_MODE_2)
-        vocals = transform.istft(apply_mask(residual_spec, vocal_masks, cfg), tcfg)
-        accompaniment = transform.istft(residual_spec, tcfg) - vocals
-        return torch.stack([drums, vocals, accompaniment])
-    dev = audio.device
-    spec, mag, n_out = _fused_stft(audio, cfg)
-    nt, rows, t, f = mag.shape
-    dm = single_net_masks(params4, mag, cfg, STEM_MODE_4)  # (1, nt, 2, T, F)
-    inv = 1.0 - dm  # the residual's in-band factor
-    in_band = spec[:, : nt * t, :f].reshape(rows, nt, t, f).transpose(0, 1)
-    mag2 = (in_band * inv[0]).abs().contiguous()
-    vm = single_net_masks(params2, mag2, cfg, STEM_MODE_2)
-    masks3 = torch.cat([dm, inv * vm, inv])
-    out_band = torch.tensor([uw, uw * (1.0 - uw), 1.0 - uw], device=dev)
-    drums, vocals, residual = stft_fused.masked_istft4096(
-        spec, masks3, out_band, transform.synthesis_window(tcfg, device=dev),
-        n_out,
-    )
-    return torch.stack([drums, vocals, residual - vocals])
+    spec = transform.stft(audio, tcfg, audio.shape[-1])
+    drum_masks = compute_masks(params4, spec, cfg, STEM_MODE_4)
+    drum_spec = apply_mask(spec, drum_masks, cfg)
+    residual_spec = spec - drum_spec
+    drums = transform.istft(drum_spec, tcfg)
+    vocal_masks = compute_masks(params2, residual_spec, cfg, STEM_MODE_2)
+    vocals = transform.istft(apply_mask(residual_spec, vocal_masks, cfg), tcfg)
+    accompaniment = transform.istft(residual_spec, tcfg) - vocals
+    return torch.stack([drums, vocals, accompaniment])
 
 
 def separate_4stem(
@@ -266,17 +368,6 @@ def separate_4stem(
 ) -> torch.Tensor:
     """4-stem graph ordered (drums, bass, accompaniment, vocals)."""
     return separate_nstem(stacked_params, audio, cfg, OUT_BAND_4)
-
-
-def check_ported(cfg: SeparatorConfig) -> None:
-    """Raise NotImplementedError for the graphs this package lacks: 4 and
-    5 stems need the FFT 4096 kernels (K7 or K9); 2 and 3 stems run any
-    transform."""
-    if cfg.num_stems in (4, 5) and cfg.transform.fft_size != stft_fused.N:
-        raise NotImplementedError(
-            _NOT_PORTED.format(f"{cfg.num_stems}-stem separation at a "
-                               f"transform other than FFT 4096")
-        )
 
 
 def separate(
@@ -296,7 +387,6 @@ def separate(
     `params2` for 3, and `stacked_params` (a leading stem axis) for 4 and
     5. Returns {stem_name: (2, n) tensor on `device`}.
     """
-    check_ported(cfg)
     audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
     if audio.ndim == 1:
         audio = torch.stack([audio, audio])

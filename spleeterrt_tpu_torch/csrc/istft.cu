@@ -3,12 +3,15 @@
 // Replaces spleeterrt_tpu/kernels/stft_fused.py::_mistft_kernel (reached
 // through masked_istft4096_cd / masked_istft4096_packed). For each stem s,
 // row r and frame f < n_frames:
-//   Y[k] = X[k] * mask[s, f // T, r, f % T, k]   for k < bin_limit
+//   Y[k] = X[k] * mask[s, track * n_tiles + f // T, ch, f % T, k]  for k < bin_limit
 //   Y[k] = X[k] * out_band[s]                    for bin_limit <= k <= 2048
 // with the imaginary parts of DC and Nyquist dropped (irfft semantics), then
 // y = irfft_4096(Y) * window and out[s, r, :] = overlap-add of the frames at
-// hop 1024, length n_frames * 1024 + 3072. The mask index map is the U-Net's
-// NCHW tile layout, so masks are read as the network wrote them.
+// hop 1024, length n_frames * 1024 + 3072. The rows are tracks of `chans`
+// channels, track-major (row = track * chans + ch), and the mask index map
+// is the U-Net's NCHW tile layout over (track, tile) images, so masks are
+// read as the network wrote them for a batch of tracks. With one track the
+// image is the tile.
 //
 // What bounds it on an H100: bytes, then the FFT's instructions. A frame
 // reads 16 KB of spectrum (shared by the stems) and 4 * bin_limit bytes of
@@ -66,7 +69,8 @@ masked_istft4096_kernel(const float2* __restrict__ spec,
                         const float* __restrict__ out_band,
                         const float* __restrict__ window,
                         const float2* __restrict__ tw, int n_stems, int rows,
-                        int n_frames, int n_spec, int n_tiles, int time_step,
+                        int chans, int n_frames, int n_spec, int n_tiles,
+                        int time_step,
                         int bin_limit, int run_hops, int n_runs,
                         long long out_len, float* __restrict__ out) {
   extern __shared__ float2 bufs[];  // [groups a block][kRadixPad]
@@ -85,10 +89,13 @@ masked_istft4096_kernel(const float2* __restrict__ spec,
   const float2* win = reinterpret_cast<const float2*>(window) + t;
   float* o = out + (static_cast<long long>(s) * rows + r) * out_len + 2 * t;
 
-  // Frame f's mask row: masks[s, f / time_step, r, f % time_step, :].
+  // Frame f's mask row: masks[s, track * n_tiles + f / time_step, ch,
+  // f % time_step, :] for row r = track * chans + ch.
+  const long long image0 =
+      (static_cast<long long>(s) * (rows / chans) + r / chans) * n_tiles;
   auto mask_row = [&](int f) {
-    return masks + (((static_cast<long long>(s) * n_tiles + f / time_step) * rows + r) *
-                        time_step + f % time_step) * bin_limit;
+    return masks + (((image0 + f / time_step) * chans + r % chans) * time_step +
+                    f % time_step) * bin_limit;
   };
   float2 acc[16];  // samples 2t + e + 256 j at slot j mod 16
 #pragma unroll
@@ -152,19 +159,21 @@ static cudaError_t allow_istft_smem(int groups) {
 
 }  // namespace spleeterrt
 
-// K7: spec (rows, n_spec, 2049) complex, masks (n_stems, n_tiles, rows,
-// time_step, bin_limit), out_band (n_stems,), window (4096,), out (n_stems,
-// rows, n_frames * 1024 + 3072); `twiddles` is the table of
-// fft2048_radix.cuh. A group walks run_hops output hops (a positive
-// multiple of 4), a block holds `groups` groups (1 to 4). Launches on
-// `stream`; returns the cudaError_t of the launch.
+// K7: spec (rows, n_spec, 2049) complex, masks (n_stems, tracks * n_tiles,
+// rows / tracks, time_step, bin_limit), out_band (n_stems,), window
+// (4096,), out (n_stems, rows, n_frames * 1024 + 3072); `twiddles` is the
+// table of fft2048_radix.cuh; `tracks` divides rows. A group walks
+// run_hops output hops (a positive multiple of 4), a block holds `groups`
+// groups (1 to 4). Launches on `stream`; returns the cudaError_t of the
+// launch.
 extern "C" int spleeterrt_masked_istft4096(
     const void* spec, const void* masks, const void* out_band,
     const void* window, const void* twiddles, int n_stems, long long rows,
-    int n_frames, int n_spec, int n_tiles, int time_step, int bin_limit,
-    int run_hops, int groups, void* out, void* stream) {
+    int tracks, int n_frames, int n_spec, int n_tiles, int time_step,
+    int bin_limit, int run_hops, int groups, void* out, void* stream) {
   using namespace spleeterrt;
-  if (run_hops <= 0 || run_hops % 4 || groups < 1 || groups > kMaxGroups)
+  if (run_hops <= 0 || run_hops % 4 || groups < 1 || groups > kMaxGroups ||
+      tracks < 1 || rows % tracks)
     return static_cast<int>(cudaErrorInvalidValue);
   int n_runs = 0;
   const int n_groups = istft_groups(n_stems, static_cast<int>(rows), n_frames,
@@ -178,7 +187,8 @@ extern "C" int spleeterrt_masked_istft4096(
       static_cast<const float2*>(spec), static_cast<const float*>(masks),
       static_cast<const float*>(out_band), static_cast<const float*>(window),
       static_cast<const float2*>(twiddles), n_stems, static_cast<int>(rows),
-      n_frames, n_spec, n_tiles, time_step, bin_limit, run_hops, n_runs, out_len,
+      static_cast<int>(rows / tracks), n_frames, n_spec, n_tiles, time_step,
+      bin_limit, run_hops, n_runs, out_len,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

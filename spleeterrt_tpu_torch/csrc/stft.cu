@@ -4,9 +4,12 @@
 // through stft4096_packed). Per (row, frame): 4096 samples at 1024 * frame,
 // times the analysis window, real FFT, then
 //   spec[row, frame, k] = X[k]                 for k in [0, 2048]
-//   mag[tile, row, t, k] = |X[k]|              for k < bin_limit
-// with frame = tile * time_step + t: the magnitude lands directly in the
-// U-Net's NCHW tile layout, so no separate magnitude or tiling pass runs.
+//   mag[track * n_tiles + tile, ch, t, k] = |X[k]|   for k < bin_limit
+// with frame = tile * time_step + t, and row = track * chans + ch: the rows
+// are `tracks` tracks of `chans` channels each, track-major. The magnitude
+// lands directly in the U-Net's NCHW tile layout, (tracks * n_tiles, chans,
+// T, F), one image per (track, tile), so no separate magnitude, tiling or
+// track-interleave pass runs. With one track the image is the tile.
 // Frames in [n_comp, n_req) are exact zeros (the reference computes
 // n_comp frames and leaves the rest zero, Executable/stftFix.c:377,460).
 //
@@ -45,7 +48,7 @@ static __global__ void __launch_bounds__(kMaxStftGroups * kRadixThreads, 2)
 stft4096_kernel(const float* __restrict__ audio, long long data_size,
                 const float* __restrict__ window,
                 const float2* __restrict__ tw, int n_comp, int n_req,
-                int rows, int bin_limit, int time_step,
+                int chans, int bin_limit, int time_step,
                 float2* __restrict__ spec, float* __restrict__ mag) {
   extern __shared__ float2 bufs[];  // [groups a block][kRadixPad]
   const int group = threadIdx.x / kRadixThreads;
@@ -54,10 +57,10 @@ stft4096_kernel(const float* __restrict__ audio, long long data_size,
   if (f >= n_req) return;  // the whole group: its barrier is its own
   const int r = blockIdx.y;
   float2* out = spec + (static_cast<long long>(r) * n_req + f) * kBins;
+  const long long image =
+      static_cast<long long>(r / chans) * (n_req / time_step) + f / time_step;
   float* mrow =
-      mag + ((static_cast<long long>(f / time_step) * rows + r) * time_step +
-             f % time_step) *
-                bin_limit;
+      mag + ((image * chans + r % chans) * time_step + f % time_step) * bin_limit;
   if (f >= n_comp) {
     for (int k = t; k < kBins; k += kRadixThreads) out[k] = make_float2(0.f, 0.f);
     for (int k = t; k < bin_limit; k += kRadixThreads) mrow[k] = 0.f;
@@ -130,17 +133,21 @@ static cudaError_t allow_stft_smem(int groups) {
 }  // namespace spleeterrt
 
 // K1: audio (rows, data_size), window (4096,) 8-byte aligned, spec (rows,
-// n_req, 2049) complex, mag (n_req / time_step, rows, time_step,
-// bin_limit); `twiddles` is the table of fft2048_radix.cuh. A block holds
+// n_req, 2049) complex, mag (tracks * n_req / time_step, rows / tracks,
+// time_step, bin_limit); `twiddles` is the table of fft2048_radix.cuh.
+// `tracks` divides rows (at most 65535, the grid's y limit). A block holds
 // `groups` 128-thread groups (1 to 4), one frame each. Launches on
 // `stream`; returns the cudaError_t of the launch.
 extern "C" int spleeterrt_stft4096(const void* audio, long long rows,
                                    long long data_size, const void* window,
                                    const void* twiddles, int n_comp, int n_req,
-                                   int bin_limit, int time_step, int groups,
-                                   void* spec, void* mag, void* stream) {
+                                   int bin_limit, int time_step, int tracks,
+                                   int groups, void* spec, void* mag,
+                                   void* stream) {
   using namespace spleeterrt;
-  if (groups < 1 || groups > kMaxStftGroups) return static_cast<int>(cudaErrorInvalidValue);
+  if (groups < 1 || groups > kMaxStftGroups || tracks < 1 || rows % tracks ||
+      rows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_stft_smem(groups);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((n_req + groups - 1) / groups),
@@ -149,7 +156,7 @@ extern "C" int spleeterrt_stft4096(const void* audio, long long rows,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(audio), data_size,
       static_cast<const float*>(window), static_cast<const float2*>(twiddles),
-      n_comp, n_req, static_cast<int>(rows), bin_limit, time_step,
+      n_comp, n_req, static_cast<int>(rows / tracks), bin_limit, time_step,
       static_cast<float2*>(spec), static_cast<float*>(mag));
   return static_cast<int>(cudaGetLastError());
 }

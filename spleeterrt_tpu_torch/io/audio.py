@@ -128,10 +128,12 @@ def _decode_pcm(data: bytes, tag: int, bits: int) -> np.ndarray:
 
 
 def write_wav(
-    path: str | os.PathLike, samples: np.ndarray, sample_rate: int = 44100
+    path: str | os.PathLike | io.BufferedIOBase, samples: np.ndarray,
+    sample_rate: int = 44100,
 ) -> None:
     """Write (channels, n) or (n,) samples as 32-bit float, the
-    reference's stem format (Executable/main.c:816-823)."""
+    reference's stem format (Executable/main.c:816-823), to a file path or
+    a binary stream."""
     x = np.asarray(samples, dtype=np.float32)
     if x.ndim == 1:
         x = x[None]
@@ -155,6 +157,9 @@ def write_wav(
         b"data",
         len(payload),
     )
+    if hasattr(path, "write"):
+        path.write(hdr + payload)
+        return
     with open(path, "wb") as f:
         f.write(hdr + payload)
 

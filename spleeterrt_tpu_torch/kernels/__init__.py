@@ -60,6 +60,18 @@ def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# A launch grid's y and z extents are at most 65535 (CUDA's limit); the
+# U-Net kernels put images on z and K1 its rows on y.
+MAX_GRID_YZ = 65535
+
+
+def check_grid(n: int, what: str) -> None:
+    """Raise ValueError if `n` blocks do not fit a grid's y or z extent:
+    such a launch would be refused or cover the wrong images."""
+    if n > MAX_GRID_YZ:
+        raise ValueError(f"{what}: {n} exceeds the grid limit {MAX_GRID_YZ}")
+
+
 def launch(fn, *args) -> None:
     """Call a C launcher; raise if it returns a CUDA error code."""
     err = fn(*args)

@@ -36,6 +36,7 @@ from spleeterrt_tpu_torch.kernels import (
     DTYPES,
     _build,
     check_act,
+    check_grid,
     check_layer,
     check_tensor,
     count_launch,
@@ -130,6 +131,9 @@ def enc1(
         raise ValueError(f"no kernel for device {dev}")
     if _tensor_cores(2, dtype) and mag.data_ptr() % 8:  # float2 loads
         raise ValueError("mag must be 8-byte aligned")
+    # Grid z: the tensor-core template takes one tile a block (every stem
+    # in it), the FMA template one image.
+    check_grid(bsz if _tensor_cores(2, dtype) else s * bsz, "enc1's images (grid z)")
     skip = torch.empty((s * bsz, t // 2, f // 2, 16), dtype=dtype, device=dev)
     actv = torch.empty_like(skip)
     # Named, so their memory is not handed to the next allocation before
@@ -192,6 +196,7 @@ def enc_s2(
         raise ValueError(f"no kernel for device {dev}")
     if _tensor_cores(c, x.dtype) and x.data_ptr() % 16:  # 16-byte cp.async
         raise ValueError("x must be 16-byte aligned")
+    check_grid(sb, "enc_s2's images (grid z)")
     skip = torch.empty((sb, h // 2, wd // 2, 2 * c), dtype=x.dtype, device=dev)
     actv = torch.empty_like(skip)
     wk = _conv_weights(w, x.dtype)

@@ -32,6 +32,7 @@ import torch
 from spleeterrt_tpu_torch.kernels import (
     DTYPES,
     check_act,
+    check_grid,
     check_tensor,
     count_launch,
     launch,
@@ -86,6 +87,7 @@ def mask_head(
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     tail.check_head_alignment(x.dtype, x)  # x + 16 is then 32 bytes further
+    check_grid(sb, "the mask head's images (grid z)")
     masks = torch.empty((sb, 2, 2 * h, 2 * wd), dtype=torch.float32, device=dev)
     w6k, w7k, scal = tail.head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7,
                                         x.dtype)

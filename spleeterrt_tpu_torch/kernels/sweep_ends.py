@@ -110,7 +110,7 @@ def sweep_istft(dev, seconds: float) -> None:
         def run(run_hops, groups):
             launch(stft_fused._lib().spleeterrt_masked_istft4096, spec.data_ptr(),
                    masks.data_ptr(), out_band.data_ptr(), window.data_ptr(),
-                   irfft_twiddles(dev).data_ptr(), n_stems, rows, n_frames, nt * t, nt,
+                   irfft_twiddles(dev).data_ptr(), n_stems, rows, 1, n_frames, nt * t, nt,
                    t, bin_limit, run_hops, groups, out.data_ptr(), stream_of(dev))
 
         ok = {}

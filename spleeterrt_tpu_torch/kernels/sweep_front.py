@@ -117,7 +117,7 @@ def sweep_stft(dev, seconds: float) -> None:
         def run(groups):
             launch(stft_fused._lib().spleeterrt_stft4096, audio.data_ptr(), rows,
                    data_size, window.data_ptr(), irfft_twiddles(dev).data_ptr(), n_comp,
-                   n_req, bin_limit, t, groups, spec.data_ptr(), mag.data_ptr(),
+                   n_req, bin_limit, t, 1, groups, spec.data_ptr(), mag.data_ptr(),
                    stream_of(dev))
 
         ok = {}

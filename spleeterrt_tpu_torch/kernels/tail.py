@@ -53,6 +53,7 @@ from spleeterrt_tpu_torch.kernels import (
     DTYPES,
     _build,
     check_act,
+    check_grid,
     check_layer,
     check_tensor,
     count_launch,
@@ -184,6 +185,7 @@ def up_shallow(
         raise ValueError(f"no kernel for device {dev}")
     if _tensor_cores(c, skip.dtype) and (skip.data_ptr() % 16 or prev.data_ptr() % 16):
         raise ValueError("skip and prev must be 16-byte aligned")  # cp.async
+    check_grid(sb, f"{UP_WIDTHS[c]}'s images (grid z)")
     out = torch.empty((sb, 2 * h, 2 * wd, c // 2), dtype=skip.dtype, device=dev)
     # Named, so their memory is not handed to the next allocation before
     # the kernel has read it.
@@ -374,6 +376,7 @@ def head(
         raise ValueError(f"no kernel for device {dev}")
     dtype = skip1.dtype
     check_head_alignment(dtype, skip1, up5)
+    check_grid(sb, "the head's images (grid z)")
     masks = torch.empty((s, sb // s, 2, 2 * h, 2 * wd), dtype=torch.float32,
                         device=dev)
     w6k, w7k, scal = head_operands(w6, b6, bn_scale6, bn_shift6, w7, b7, dtype)

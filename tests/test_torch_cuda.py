@@ -23,7 +23,11 @@ and equal to K10 on the concatenated sources, and K6 and K10 refusing a
 bf16 source off 16-byte alignment; for
 K8/K9 one frame and odd frame counts, bin limits 1, 512, 777, 2048 and
 2049, with and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
-and the round-3 route; and one streaming block step at K = 1.
+and the round-3 route; one streaming block step at K = 1; K1 and K7 with
+1 to 5 tracks folded into their rows at an odd tile count (each track bit
+for bit its lone launch); the 2-, 3- and 4-stem batch graphs' launch
+counts over three tracks; and every wrapper refusing a grid past CUDA's
+65535 blocks in y or z.
 Where there is no CUDA device every test skips. On a machine with one
 (which may lack jax, which tests/conftest.py imports):
 
@@ -46,7 +50,7 @@ import torch
 
 from spleeterrt_tpu_torch import kernels
 from spleeterrt_tpu_torch.config import SeparatorConfig, TransformConfig
-from spleeterrt_tpu_torch.core import model, transform
+from spleeterrt_tpu_torch.core import model, separate, transform, weights
 from spleeterrt_tpu_torch.kernels import (
     encoder,
     mask_head,
@@ -627,3 +631,121 @@ def test_block_step_streams_launches_each_kernel_once(device):
                                                    2, (0.25, 0.0))
     assert ref.abs().max() > 0.01
     assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The batch graphs: K1 and K7 with `tracks`, launch counts, grid limits
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tracks", [1, 2, 3, 4, 5])
+def test_stft_istft_tracks_match_lone_launches(device, tracks):
+    """K1 and K7 over `tracks` tracks folded into their rows, at an odd
+    tile count (3 tiles of 48 frames, the last part zero): each track's
+    spectrum, magnitude images and audio bit-identical to a launch on
+    that track alone, and the batch within its bound of the plain
+    versions."""
+    n, bl, t = 130_001, 777, 48
+    rows = 2 * tracks
+    audio, n_out, n_comp, n_req = _inputs(device, rows, n, t)
+    nt = n_req // t
+    assert nt == 3
+    win = transform.analysis_window(4096, device=device)
+    swin = transform.synthesis_window(TCFG, device=device)
+    k1 = (audio, win, n_comp, n_req, bl, t, tracks)
+    spec, mag = _counted("stft4096", stft_fused.stft4096, *k1)
+    assert mag.shape == (tracks * nt, 2, t, bl)
+    pspec, pmag = stft_fused.stft4096_plain(*k1)
+    bound = 1e-5 * pspec.abs().max().item()
+    assert (spec - pspec).abs().max().item() <= bound
+    assert (mag - pmag).abs().max().item() <= bound
+    gen = torch.Generator(device=device).manual_seed(tracks)
+    masks = torch.rand((4, tracks * nt, 2, t, bl), generator=gen, device=device)
+    ob = torch.tensor([0.25, 0.0, 0.25, 0.5], device=device)
+    k7 = (spec, masks, ob, swin, n_out, tracks)
+    y = _counted("masked_istft4096", stft_fused.masked_istft4096, *k7)
+    _fft_close(y, stft_fused.masked_istft4096_plain(*k7))
+    for i in range(tracks):
+        rows_i, img = slice(2 * i, 2 * i + 2), slice(i * nt, (i + 1) * nt)
+        spec1, mag1 = stft_fused.stft4096(audio[rows_i].contiguous(), *k1[1:6])
+        assert torch.equal(spec[rows_i], spec1) and torch.equal(mag[img], mag1)
+        y1 = stft_fused.masked_istft4096(spec1, masks[:, img].contiguous(), ob,
+                                         swin, n_out)
+        assert torch.equal(y[:, rows_i], y1)
+
+
+def _batch_nets(device, n):
+    gen = torch.Generator().manual_seed(11)
+    cpu = [model.init_params(gen) for _ in range(n)]
+    return cpu, [{k: {f: v.to(device) for f, v in p[k].items()} for k in p}
+                 for p in cpu]
+
+
+_NONE = dict.fromkeys(kernels.KERNELS, 0)
+
+
+@pytest.mark.parametrize("graph", ["4 stems", "2 stems", "3 stems"])
+def test_batch_graphs_launch_once(device, graph):
+    """Three tracks of different content as one batch (fp32): K1 and K7
+    once for the batch, the U-Net's kernels once a pass, and each track
+    within 1e-4 of its own single-track run on the card."""
+    n_stems = int(graph[0])
+    cfg = SeparatorConfig(bin_limit=512, time_step=64, num_stems=n_stems,
+                          compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(n_stems)
+    tracks = transform.pad_offline(
+        torch.randn((3, 2, 70_000), generator=gen) * torch.tensor([0.1, 0.3, 0.5])[
+            :, None, None], cfg.transform).to(device).contiguous()
+    _, nets = _batch_nets(device, 4 if n_stems == 4 else 2)
+    if n_stems == 4:
+        stacked = weights.stack_params(nets)
+        run = lambda x: separate.separate_nstem_batch(stacked, x, cfg,
+                                                      separate.OUT_BAND_4)
+        per_pass = {"stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1,
+                    "head": 1, "masked_istft4096": 1}
+    elif n_stems == 2:
+        run = lambda x: separate.separate_2stem_batch(nets[0], x, cfg)
+        per_pass = {"stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1,
+                    "head": 1, "masked_istft4096": 1}
+    else:
+        run = lambda x: separate.separate_3stem_batch(nets[0], nets[1], x, cfg)
+        per_pass = {"stft4096": 1, "enc1": 2, "enc_s2": 6, "up4": 2, "up5": 2,
+                    "head": 2, "masked_istft4096": 1}
+    kernels.reset_launch_counts()
+    got = run(tracks)
+    assert kernels.launch_counts() == {**_NONE, **per_pass}
+    for i in range(3):
+        one = run(tracks[i : i + 1])[0]
+        assert (got[i] - one).abs().max().item() <= 1e-4
+
+
+def test_wrappers_refuse_grids_past_the_limit(device):
+    """More than 65535 images (grid z) or K1 rows (grid y): a ValueError
+    before any launch, never a launch over the wrong images."""
+    kernels.reset_launch_counts()
+    big = kernels.MAX_GRID_YZ + 1
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="grid limit"):
+        encoder.enc1(torch.zeros((big, 2, 2, 2), device=device),
+                     *_layer(gen, 1, (16, 2, 5, 5), 16, device), act="elu",
+                     dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="grid limit"):
+        encoder.enc_s2(torch.zeros((big, 2, 2, 16), device=device),
+                       *_layer(gen, 1, (32, 16, 5, 5), 32, device), act="elu")
+    with pytest.raises(ValueError, match="grid limit"):
+        src = torch.zeros((big, 1, 1, 32), device=device)
+        tail.up_shallow(src, src, *_layer(gen, 1, (64, 16, 5, 5), 16, device),
+                        act="elu")
+    w6 = _layer(gen, 1, (32, 1, 5, 5), 1, device)
+    w7, b7, _, _ = _layer(gen, 1, (2, 1, 4, 4), 2, device)
+    with pytest.raises(ValueError, match="grid limit"):
+        src = torch.zeros((big, 1, 1, 16), device=device)
+        tail.head(src, src, *w6, w7, b7, act="elu")
+    with pytest.raises(ValueError, match="grid limit"):
+        mask_head.mask_head(torch.zeros((big, 1, 1, 32), device=device), *w6,
+                            w7, b7, act="elu")
+    with pytest.raises(ValueError, match="grid limit"):
+        stft_fused.stft4096(torch.zeros((big, 4096), device=device),
+                            transform.analysis_window(4096, device=device), 1,
+                            64, 512, 64)
+    assert not any(kernels.launch_counts().values())

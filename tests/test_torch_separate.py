@@ -140,29 +140,40 @@ def test_separate_overlap2_matches_jax(rng):
         )
 
 
-def test_fft_sizes_other_than_4096_raise():
-    _, stacked = _stacked([0, 1, 2, 3])
+def _check_fft2048(rng, n_stems):
+    """n_stems at FFT 2048 (hop 512) against the JAX package's separate."""
+    jstacked, stacked = _stacked(range(n_stems))
+    kw = dict(bin_limit=512, time_step=64, num_stems=n_stems)
     cfg = SeparatorConfig(transform=TransformConfig(fft_size=2048),
-                          bin_limit=512, time_step=64, num_stems=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        separate.separate(np.zeros((2, 5000), np.float32),
-                          stacked_params=stacked, cfg=cfg, device="cpu")
+                          compute_dtype=torch.float32, **kw)
+    jcfg = JSeparatorConfig(transform=JTransformConfig(fft_size=2048),
+                            compute_dtype=jnp.float32, **kw)
+    x = (rng.standard_normal((2, 5000)) * 0.3).astype(np.float32)
+    kernels.reset_launch_counts()
+    got = separate.separate(x, stacked_params=stacked, cfg=cfg, device="cpu")
+    assert not any(kernels.launch_counts().values())
+    ref = jseparate.separate(x, stacked_params=jstacked, cfg=jcfg)
+    assert list(got) == list(ref) == list(cfg.stem_names)
+    for name in ref:
+        assert got[name].shape == x.shape
+        assert np.abs(np.asarray(ref[name])).max() > 0.01
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(ref[name]),
+                                   atol=2e-4)
 
 
-def test_unported_stem_counts_raise():
-    """Every stem count is ported at FFT 4096; the 4- and 5-stem graphs
-    still raise at another FFT size, which their inverse kernels (K7, K9)
-    do not take."""
-    _, stacked = _stacked(range(5))
-    for n in (2, 3, 4, 5):
-        separate.check_ported(SeparatorConfig(bin_limit=512, time_step=64,
-                                              num_stems=n))
-    for n in (4, 5):
-        cfg = SeparatorConfig(transform=TransformConfig(fft_size=2048),
-                              bin_limit=512, time_step=64, num_stems=n)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            separate.separate(np.zeros((2, 5000), np.float32),
-                              stacked_params=stacked, cfg=cfg, device="cpu")
+def test_fft_sizes_other_than_4096_raise(rng):
+    """(Named when this raised.) 4 stems at FFT 2048 run the reference's
+    canonical branch, one transform.istft a stem, and match JAX's
+    separate_nstem to 2e-4."""
+    _check_fft2048(rng, 4)
+
+
+def test_unported_stem_counts_raise(rng):
+    """(Named when 4 and 5 stems raised at other FFT sizes.) No graph
+    raises NotImplementedError for any stem count or transform any more:
+    5 stems at FFT 2048 match JAX's separate_nstem to 2e-4."""
+    assert not hasattr(separate, "check_ported")
+    _check_fft2048(rng, 5)
 
 
 def test_cli_matches_jax_cli(tmp_path, rng):
@@ -231,6 +242,8 @@ def test_package_never_imports_jax():
         "import spleeterrt_tpu_torch.kernels.pallas_fft\n"
         "import spleeterrt_tpu_torch.kernels.mask_head\n"
         "import spleeterrt_tpu_torch.runtime.stream, spleeterrt_tpu_torch.cli_stream\n"
+        "import spleeterrt_tpu_torch.runtime.executor\n"
+        "import spleeterrt_tpu_torch.runtime.server\n"
         "import spleeterrt_tpu_torch.io.resample, spleeterrt_tpu_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spleeterrt_tpu' or m.startswith('spleeterrt_tpu.')]\n"
