@@ -100,6 +100,23 @@ Phases, each of which raises (non-zero exit) on failure:
    call): ms a dispatch, aggregate realtime factor, peak memory; at B =
    16 the same tracks as 16 single-track calls; the peak's growth a track
    and the batch the card would hold by it (extrapolated).
+17. Training on the card, on a musdb-layout corpus written from seed 0
+   (4 train and 2 holdout tracks of 20 s, vocals, accompaniment and
+   mixture; one train track's stems as FLAC from the port's encoder):
+   30 bf16 steps at examples/train.py's defaults (2 stems, batch 8, 256 x
+   1024, Adam 3e-4, clip 1.0, EMA 0.999) through dataset.batches ->
+   train_step, with finite losses, the mean of the last 5 below that of
+   the first 5 and no hand-kernel launch; ms a step (CUDA events after 3
+   warm steps), audio seconds trained a second, peak memory, the share of
+   the bf16 peak and a profile of one step. fp32 gradients at batch 2 on
+   the card against CPU tensors (TF32 off, deterministic cuDNN), each leaf
+   within 1e-4 of its max |g|; resume (4 steps straight against 2,
+   checkpoint.save, restore into a fresh state, 2 more) bit for bit;
+   evaluate_si_sdr of the EMA nets on the holdout through the kernels (K1,
+   K2, K4-K7 once and K3 three times a track), fp32 within 0.01 dB of the
+   plain versions on CPU tensors, bf16 beside it; and train_and_deploy
+   (120 fp32 steps, batch 4): SI-SDR rises, the blob round trip within
+   1e-5.
 
 Phase 2 also runs K1 and K7 with four 30 s tracks folded into their rows
 (tracks = 4): against their plain versions, twice bit-identical, and each
@@ -146,8 +163,17 @@ from spleeterrt_tpu_torch.config import (
     SeparatorConfig,
     TransformConfig,
 )
-from spleeterrt_tpu_torch.core import model, separate, transform, weights
-from spleeterrt_tpu_torch.io import audio as audio_io
+from spleeterrt_tpu_torch.core import (
+    checkpoint,
+    model,
+    separate,
+    train,
+    transform,
+    weights,
+)
+from spleeterrt_tpu_torch.data import dataset as stem_data
+from spleeterrt_tpu_torch.examples import train_and_deploy
+from spleeterrt_tpu_torch.io import audio as audio_io, flac
 from spleeterrt_tpu_torch.kernels import (
     _build,
     encoder,
@@ -1904,6 +1930,261 @@ def phase_server(workdir: str, device) -> None:
         thread.join(timeout=60)
 
 
+# ---------------------------------------------------------------------------
+# Training: the stem dataset, full-width train steps, card gradients against
+# the CPU, resume, held-out SI-SDR through the kernels, train and deploy
+# ---------------------------------------------------------------------------
+
+TRAIN_STEMS = ("vocals", "accompaniment")
+TRAIN_TRACKS, HOLDOUT_TRACKS = 4, 2
+TRAIN_TRACK_SECONDS = 20.0
+# examples/train.py's defaults: 2 stems, bin_limit 1024, time_step 256,
+# batch 8, bf16, Adam 3e-4 after a clip to global norm 1, EMA 0.999.
+TRAIN_TIME_STEP = 256
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARM = 8, 30, 3
+TRAIN_LR, TRAIN_EMA = 3e-4, 0.999
+CHECK_BATCH = 2  # the gradient and resume checks (fp32)
+# Card vs CPU gradients in fp32 (TF32 off, deterministic cuDNN): the same
+# products summed in another order through twelve layers; the CPU tests
+# measure 4.4e-6 of a leaf's max |g| between torch and XLA.
+TRAIN_GRAD_REL_BOUND = 1e-4
+SI_SDR_MAX_DB = 0.01  # card (kernels) vs CPU (plain versions), fp32
+DEPLOY_STEPS, DEPLOY_BATCH = 120, 4  # train_and_deploy's defaults
+
+
+def train_config(compute_dtype) -> SeparatorConfig:
+    return SeparatorConfig(bin_limit=EXE_BIN_LIMIT, time_step=TRAIN_TIME_STEP,
+                           num_stems=len(TRAIN_STEMS),
+                           compute_dtype=compute_dtype)
+
+
+def unet_forward_flops(t: int, f: int) -> float:
+    """Multiply-adds x 2 of one U-Net forward over a T x F tile: each 5 x 5
+    stride-2 conv at its output size, each transposed conv at its input
+    size, and the 4 x 4 final conv."""
+    macs = 0
+    for i, (cin, cout) in enumerate(model.ENCODER_CHANNELS, start=1):
+        macs += (t >> i) * (f >> i) * cin * cout * 25
+    for i, (cin, cout) in enumerate(model.DECODER_CHANNELS, start=1):
+        macs += (t >> (7 - i)) * (f >> (7 - i)) * cin * cout * 25
+    cin, cout = model.FINAL_CHANNELS
+    return 2.0 * (macs + t * f * cin * cout * 16)
+
+
+def write_stem_corpus(root: str) -> None:
+    """A musdb-layout corpus from seed SEED: train/ and test/ tracks of
+    TRAIN_TRACK_SECONDS with a vocal-like stem (a harmonic tone with
+    vibrato), an accompaniment (noise and two low tones) and their mixture,
+    as WAV; the first train track's stems as FLAC (the port's encoder), so
+    its crops come through the decoded cache. The stems hold their level,
+    so the loss of a batch moves with the nets more than with its crops."""
+    rng = np.random.default_rng(SEED)
+    n = int(TRAIN_TRACK_SECONDS * SR)
+    t = np.arange(n) / SR
+    for split, count in (("train", TRAIN_TRACKS), ("test", HOLDOUT_TRACKS)):
+        for k in range(count):
+            d = os.path.join(root, split, f"track{k}")
+            os.makedirs(d)
+            f0 = rng.uniform(150.0, 400.0) * (
+                1.0 + 0.05 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / SR
+            voice = sum(0.3 / h * np.sin(h * phase) for h in (1, 2, 3))
+            acc = 0.1 * rng.standard_normal((2, n))
+            for f1 in rng.uniform(50.0, 220.0, 2):
+                acc += 0.05 * np.sin(2 * np.pi * f1 * t + rng.uniform(0, 2 * np.pi))
+            stems = {"vocals": np.stack([voice, 0.8 * voice]), "accompaniment": acc}
+            for name, x in stems.items():
+                x = x.astype(np.float32)
+                if split == "train" and k == 0:
+                    with open(os.path.join(d, f"{name}.flac"), "wb") as fh:
+                        fh.write(flac.encode_flac(x))
+                else:
+                    audio_io.write_wav(os.path.join(d, f"{name}.wav"), x)
+            audio_io.write_wav(os.path.join(d, "mixture.wav"),
+                               sum(stems.values()).astype(np.float32))
+
+
+def training_nets(seed: int, device):
+    """Random stacked nets for TRAIN_STEMS (seeds seed, seed + 1)."""
+    nets = [model.init_params(torch.Generator().manual_seed(seed + i))
+            for i in range(len(TRAIN_STEMS))]
+    return weights.params_to(weights.stack_params(nets), device)
+
+
+def loss_and_grads(stacked, batch, cfg):
+    p = train.trainable(stacked)
+    mix, tgt, active = batch
+    loss = train.separation_loss(p, mix, tgt, STEM_MODE_4, cfg.compute_dtype,
+                                 active)
+    loss.backward()
+    return float(loss.detach()), [g.grad for g in train.param_leaves(p)]
+
+
+def phase_train_steps(train_set, device, smi: str):
+    """30 full-width bf16 steps at examples/train.py's defaults through
+    dataset.batches -> train_step; returns the state."""
+    cfg = train_config(torch.bfloat16)
+    state = train.init_train_state(training_nets(SEED, device), TRAIN_LR, ema=True)
+    step = train.make_train_step(STEM_MODE_4, cfg.compute_dtype, TRAIN_EMA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for batch in stem_data.batches(train_set, cfg, TRAIN_BATCH, seed=SEED,
+                                   steps=TRAIN_STEPS, device=device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, *batch)
+        end.record()
+        losses.append(loss)
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(x) for x in losses]
+    ms = np.mean([a.elapsed_time(b) for a, b in events[TRAIN_WARM:]])
+    crop_s = stem_data.crop_samples(cfg) / SR
+    flops = 3 * unet_forward_flops(cfg.time_step, cfg.bin_limit) * (
+        len(TRAIN_STEMS) * TRAIN_BATCH)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"[train] {TRAIN_STEPS} bf16 steps, {len(TRAIN_STEMS)} stems x B = "
+        f"{TRAIN_BATCH} x {cfg.time_step} x {cfg.bin_limit}: losses "
+        f"{' '.join(f'{x:.5f}' for x in losses)}")
+    log(f"[train] step {ms:.3f} ms (CUDA events, steps {TRAIN_WARM + 1}.."
+        f"{TRAIN_STEPS}) = {TRAIN_BATCH * crop_s / (ms / 1e3):.1f} audio s "
+        f"trained a second; with data loading {1e3 * wall / TRAIN_STEPS:.3f} "
+        f"ms a step (wall) = {TRAIN_BATCH * crop_s * TRAIN_STEPS / wall:.1f} "
+        f"audio s a second; peak memory {peak / 2**30:.3f} GiB; "
+        f"{flops / 1e12:.4f} TFLOP a step (3x forward) = "
+        f"{100 * flops / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]:.2f}% of "
+        f"the bf16 peak ({smi})")
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"train: losses not finite or not falling "
+                             f"(first 5 {first}, last 5 {last})")
+    if any(launches.values()):
+        raise AssertionError(f"train steps launched hand kernels: {launches}")
+    log(f"[train] losses finite, mean of the last 5 {last:.5f} < first 5 "
+        f"{first:.5f}; no hand-kernel launch in the steps")
+    batch = next(stem_data.batches(train_set, cfg, TRAIN_BATCH, seed=SEED + 9,
+                                   steps=1, device=device))
+    profile_device("one bf16 train step (cuDNN forward and backward)",
+                   lambda: step(state, *batch))
+    return state
+
+
+def phase_train_grads(train_set, device) -> None:
+    """One fp32 loss and gradient at B = 2 on the card against the same
+    call on CPU tensors."""
+    cfg = train_config(torch.float32)
+    batch = next(stem_data.batches(train_set, cfg, CHECK_BATCH, seed=SEED + 1,
+                                   steps=1, device="cpu"))
+    nets = training_nets(SEED, "cpu")
+    with cudnn_deterministic(True):
+        card_loss, card = loss_and_grads(weights.params_to(nets, device),
+                                         [x.to(device) for x in batch], cfg)
+    cpu_loss, ref = loss_and_grads(nets, batch, cfg)
+    worst = max(float((g.cpu() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                for g, r in zip(card, ref))
+    log(f"[train] fp32 gradients, card vs CPU at B = {CHECK_BATCH}: loss "
+        f"{card_loss:.7f} vs {cpu_loss:.7f}, worst leaf max|dg| / max|g| "
+        f"{worst:.3e} (<= {TRAIN_GRAD_REL_BOUND})")
+    if not worst <= TRAIN_GRAD_REL_BOUND:
+        raise AssertionError("train: card gradients off the CPU's")
+
+
+def phase_train_resume(train_set, workdir: str, device) -> None:
+    """fp32, B = 2: 4 steps straight against 2 steps, checkpoint.save,
+    restore into a fresh state, 2 more; params and EMA bit-identical."""
+    cfg = train_config(torch.float32)
+    data = list(stem_data.batches(train_set, cfg, CHECK_BATCH, seed=SEED + 2,
+                                  steps=4, device=device))
+    step = train.make_train_step(STEM_MODE_4, cfg.compute_dtype, TRAIN_EMA)
+
+    def run(state, batches):
+        for batch in batches:
+            state, _ = step(state, *batch)
+        return state
+
+    fresh = lambda seed: train.init_train_state(training_nets(seed, device),
+                                                TRAIN_LR, ema=True)
+    root = os.path.join(workdir, "ckpt")
+    with cudnn_deterministic(True):
+        straight = run(fresh(SEED), data)
+        checkpoint.save(os.path.join(root, "step_2"), run(fresh(SEED), data[:2]))
+        resumed = checkpoint.restore(checkpoint.latest_step_dir(root),
+                                     fresh(SEED + 10))
+        resumed = run(resumed, data[2:])
+    diffs = [float((a.detach() - b.detach()).abs().max()) for x, y in (
+        (straight.params, resumed.params), (straight.ema_params, resumed.ema_params))
+        for a, b in zip(train.param_leaves(x), train.param_leaves(y))]
+    log(f"[train] resume: 4 steps straight vs 2 + save + restore + 2 (fp32, "
+        f"deterministic cuDNN): step {resumed.step}, max |diff| over params and "
+        f"EMA {max(diffs):.3e}")
+    if resumed.step != straight.step or max(diffs) != 0.0:
+        raise AssertionError("train: the resumed run is not bit-identical")
+
+
+def phase_train_eval(ema, holdout, device, smi: str) -> None:
+    """evaluate_si_sdr of the EMA nets on the holdout through the kernels,
+    fp32 and bf16, against fp32 on CPU tensors (the plain versions)."""
+    reports = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        reports[dtype] = train.evaluate_si_sdr(ema, holdout, train_config(dtype))
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        log(f"[train] evaluate_si_sdr {dtype} on the card: "
+            f"{json.dumps(reports[dtype])}, {wall:.3f} s wall, launches "
+            f"{launches} ({smi})")
+        if launches != expected_launches(MAIN_PATH_LAUNCHES, HOLDOUT_TRACKS):
+            raise AssertionError(f"eval launches {launches}, expected "
+                                 f"{MAIN_PATH_LAUNCHES} per track")
+    cpu = train.evaluate_si_sdr(weights.params_to(ema, "cpu"), holdout,
+                                train_config(torch.float32))
+    worst = max(abs(reports[torch.float32][k] - cpu[k]) for k in cpu)
+    log(f"[train] evaluate_si_sdr fp32 on CPU tensors (plain versions): "
+        f"{json.dumps(cpu)}; card vs CPU {worst:.3e} dB (<= {SI_SDR_MAX_DB})")
+    if not worst <= SI_SDR_MAX_DB:
+        raise AssertionError("train: card SI-SDR off the plain versions'")
+
+
+def phase_train(device, smi: str) -> None:
+    """Training on the card: the stem dataset (WAV and FLAC stems), 30
+    full-width bf16 steps, card gradients against the CPU, resume,
+    held-out SI-SDR through the kernels, and train_and_deploy."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        write_stem_corpus(workdir)
+        train_set = stem_data.StemDataset(os.path.join(workdir, "train"),
+                                          TRAIN_STEMS)
+        holdout = stem_data.StemDataset(os.path.join(workdir, "test"),
+                                        TRAIN_STEMS)
+        streamed = [t.streaming for t in train_set.tracks]
+        log(f"[train] corpus of {len(streamed)} train tracks ({sum(streamed)} "
+            f"streamed, one with FLAC stems through the decoded cache) and "
+            f"{len(holdout.tracks)} holdout tracks of {TRAIN_TRACK_SECONDS:.0f} "
+            f"s in {time.perf_counter() - t0:.3f} s")
+        if streamed != [False] + [True] * (TRAIN_TRACKS - 1):
+            raise AssertionError(f"train: streaming tracks {streamed}")
+        state = phase_train_steps(train_set, device, smi)
+        phase_train_grads(train_set, device)
+        phase_train_resume(train_set, workdir, device)
+        phase_train_eval(state.ema_params, holdout, device, smi)
+        t0 = time.perf_counter()
+        deploy = train_and_deploy.run(DEPLOY_STEPS, DEPLOY_BATCH, workdir, device)
+        log(f"[train] train_and_deploy ({DEPLOY_STEPS} fp32 steps, batch "
+            f"{DEPLOY_BATCH}, bin_limit 512, time_step 64) in "
+            f"{time.perf_counter() - t0:.3f} s: SI-SDR {deploy['si_sdr_init']['mean']:.3f}"
+            f" -> {deploy['si_sdr_trained']['mean']:.3f} dB, train "
+            f"{deploy['train_seconds']:.3f} s, blob round trip max |diff| "
+            f"{deploy['deploy_roundtrip_max_err']:.3e} (<= "
+            f"{train_and_deploy.ROUNDTRIP_MAX_ERR}) ({smi})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1933,6 +2214,7 @@ def main() -> int:
     phase_stream_timing(device)
     phase_timing_2stem(device)
     phase_batch_timing(device)
+    phase_train(device, smi)
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
     # 2-stem CLI's round-3 route for K10.

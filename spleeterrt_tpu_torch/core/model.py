@@ -41,7 +41,9 @@ Three routes, tried in the reference package's order
 3. the canonical per-stem `unet_forward_nchw`.
 
 The gates look at shapes only, not at the device: on CPU tensors a route
-runs the kernels' plain versions, on CUDA tensors the kernels.
+runs the kernels' plain versions, on CUDA tensors the kernels. The
+reference's `pallas_head` / `pallas_encoder` switches, both False, pin the
+canonical route, which is the only one autograd can differentiate.
 """
 
 from __future__ import annotations
@@ -469,16 +471,17 @@ def multi_stem_trunk(
     magnitude: torch.Tensor,  # (B, 2, T, F) float32, shared across stems
     stem_mode: int,
     compute_dtype,
+    pallas_encoder: bool = True,
 ) -> torch.Tensor:
     """Every stem's trunk -> up6's input (S * B, T/2, F/2, C) NHWC in the
     compute dtype, image s * B + b from stem s (the reference's
-    `_multi_stem_trunk`). Where `use_pallas_encoder` holds, K2 enc1 and K3
-    enc2, enc3 run every stem in one launch each and `trunk_tail` takes
-    over; otherwise each stem runs `unet_trunk`."""
+    `_multi_stem_trunk`). Where `pallas_encoder` and `use_pallas_encoder`
+    hold, K2 enc1 and K3 enc2, enc3 run every stem in one launch each and
+    `trunk_tail` takes over; otherwise each stem runs `unet_trunk`."""
     n_stems = num_stems(stacked_params)
     b = magnitude.shape[0]
     fronts = None
-    if use_pallas_encoder(stacked_params, magnitude):
+    if pallas_encoder and use_pallas_encoder(stacked_params, magnitude):
         skips, act3 = kernel_encoder(stacked_params, magnitude, 3, stem_mode,
                                      compute_dtype)
         fronts = [*skips, act3]
@@ -536,32 +539,58 @@ def multi_stem_masks_canonical(
     ])
 
 
+def round3_masks(
+    stacked_params: Params,
+    magnitude: torch.Tensor,  # (B, 2, T, F), shared across stems
+    stem_mode: int,
+    compute_dtype,
+    sigmoid: str,
+    use_head: bool,
+    pallas_encoder: bool,
+) -> torch.Tensor:
+    """The round-3 route -> (S, B, 2, T, F) fp32: `multi_stem_trunk`, then
+    K10 (`pallas_head`) if `use_head`, else each stem's canonical head."""
+    trunk = multi_stem_trunk(stacked_params, magnitude, stem_mode,
+                             compute_dtype, pallas_encoder)
+    if use_head:
+        return pallas_head(stacked_params, trunk, stem_mode)
+    n_stems = num_stems(stacked_params)
+    return torch.stack([
+        canonical_head(stem_params(stacked_params, s), x.permute(0, 3, 1, 2),
+                       stem_mode, compute_dtype, sigmoid)
+        for s, x in enumerate(trunk.chunk(n_stems))
+    ])
+
+
 def multi_stem_masks(
     stacked_params: Params,
     magnitude: torch.Tensor,  # (B, 2, T, F), shared across stems
     stem_mode: int = STEM_MODE_4,
     compute_dtype=torch.float32,
     sigmoid: str = "exact",
+    pallas_head: bool = True,
+    pallas_encoder: bool = True,
 ) -> torch.Tensor:
     """S stacked nets over one NCHW magnitude batch -> (S, B, 2, T, F) fp32:
     the packed route where `use_packed_unet` holds, else the round-3 route
-    where its head or encoder gate holds, else the canonical."""
-    if use_packed_unet(stacked_params, magnitude, sigmoid):
+    where its head or encoder gate holds, else the canonical.
+
+    `pallas_head` and `pallas_encoder` are the reference's switches
+    (spleeterrt_tpu/core/model.py::multi_stem_forward): False shuts the
+    head's or the encoder's kernels out, whatever the FORCE_* switches
+    say; the packed route needs both. A differentiated call passes both
+    False (core/train.py::separation_loss): the kernels have no backward,
+    so that call runs the canonical `unet_forward_nchw` of each stem."""
+    if (pallas_head and pallas_encoder
+            and use_packed_unet(stacked_params, magnitude, sigmoid)):
         return packed_unet_masks(stacked_params, magnitude, stem_mode,
                                  compute_dtype)
-    use_head = use_pallas_head(stacked_params, magnitude, sigmoid)
-    if use_head or use_pallas_encoder(stacked_params, magnitude):
-        trunk = multi_stem_trunk(stacked_params, magnitude, stem_mode,
-                                 compute_dtype)
-        if use_head:
-            return pallas_head(stacked_params, trunk, stem_mode)
-        n_stems = num_stems(stacked_params)
-        return torch.stack([
-            canonical_head(stem_params(stacked_params, s),
-                           x.permute(0, 3, 1, 2), stem_mode, compute_dtype,
-                           sigmoid)
-            for s, x in enumerate(trunk.chunk(n_stems))
-        ])
+    use_head = pallas_head and use_pallas_head(stacked_params, magnitude,
+                                               sigmoid)
+    use_enc = pallas_encoder and use_pallas_encoder(stacked_params, magnitude)
+    if use_head or use_enc:
+        return round3_masks(stacked_params, magnitude, stem_mode,
+                            compute_dtype, sigmoid, use_head, pallas_encoder)
     return multi_stem_masks_canonical(stacked_params, magnitude, stem_mode,
                                       compute_dtype, sigmoid)
 
@@ -572,9 +601,12 @@ def multi_stem_forward(
     stem_mode: int = STEM_MODE_4,
     compute_dtype=torch.float32,
     sigmoid: str = "exact",
+    pallas_head: bool = True,
+    pallas_encoder: bool = True,
 ) -> torch.Tensor:
-    """Run S stacked U-Nets over one magnitude batch -> (S, B, T, F, 2)."""
+    """Run S stacked U-Nets over one magnitude batch -> (S, B, T, F, 2),
+    routed as :func:`multi_stem_masks` routes them."""
     return multi_stem_masks(
         stacked_params, magnitude.permute(0, 3, 1, 2).contiguous(), stem_mode,
-        compute_dtype, sigmoid,
+        compute_dtype, sigmoid, pallas_head, pallas_encoder,
     ).permute(0, 1, 3, 4, 2)

@@ -1,8 +1,10 @@
-"""Audio file I/O: a from-scratch RIFF/WAVE codec in NumPy.
+"""Audio file I/O: a from-scratch RIFF/WAVE codec in NumPy, and FLAC.
 
 Reads PCM 8/16/24/32, IEEE float32/64 and WAVE_FORMAT_EXTENSIBLE; writes
-float32 (the reference's stem format, Executable/main.c:812-843). FLAC
-and MP3 are not decoded by this package yet (see ROADMAP.md): they raise
+float32 (the reference's stem format, Executable/main.c:812-843).
+`WavReader` opens a WAV header-only and decodes frame ranges (the training
+dataset's streaming reads). FLAC decodes through io/flac.py. MP3 is not
+decoded by this package yet (see ROADMAP.md): it raises
 :class:`UnsupportedFormatError` before any device or weight work.
 """
 
@@ -14,6 +16,8 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+
+from spleeterrt_tpu_torch.io import flac
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -32,12 +36,12 @@ class UnsupportedFormatError(ValueError):
 
 
 def check_decodable(path: str | os.PathLike) -> None:
-    """Fail fast unless `path` is a WAV file."""
+    """Fail fast unless `path` is a WAV or FLAC file."""
     ext = os.path.splitext(str(path))[1].lower()
-    if ext == ".wav":
+    if ext in (".wav", ".flac"):
         return
     raise UnsupportedFormatError(
-        f"cannot decode {path}: this package reads WAV only so far "
+        f"cannot decode {path}: this package reads WAV and FLAC only so far "
         f"({ext or 'unknown'} decoding is still to be ported, see "
         f"ROADMAP.md). Convert to WAV first, e.g. `ffmpeg -i {path} "
         f"track.wav`."
@@ -77,6 +81,70 @@ def read_wav(path: str | os.PathLike | bytes) -> AudioData:
         n = x.size // channels
         samples = x[: n * channels].reshape(n, channels).T
         return AudioData(np.ascontiguousarray(samples), rate)
+
+
+class WavReader:
+    """Seekable WAV handle: header-only open, frame-range reads (the
+    reference package's `WavReader`).
+
+    Backs the streaming training dataset (data/dataset.py): tracks are never
+    held in RAM; each crop seeks into the data chunk and decodes only the
+    requested frames, in every format `read_wav` reads.
+    """
+
+    def __init__(self, path: str | os.PathLike):
+        self.path = os.fspath(path)
+        with open(self.path, "rb") as f:
+            riff, _size, wave = struct.unpack("<4sI4s", f.read(12))
+            if riff != b"RIFF" or wave != b"WAVE":
+                raise ValueError(f"not a RIFF/WAVE file: {self.path}")
+            fmt = None
+            self._data_off = None
+            self._data_size = None
+            while True:
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    break
+                cid, csize = struct.unpack("<4sI", hdr)
+                if cid == b"fmt ":
+                    fmt = f.read(csize)
+                    if csize % 2:
+                        f.read(1)
+                elif cid == b"data":
+                    self._data_off = f.tell()
+                    self._data_size = csize
+                    if fmt is not None:
+                        break
+                    f.seek(csize + csize % 2, 1)
+                else:
+                    f.seek(csize + csize % 2, 1)
+            if fmt is None or self._data_off is None:
+                raise ValueError(f"missing fmt/data chunk: {self.path}")
+        tag, channels, rate, bits = _parse_fmt(fmt, self.path)
+        if channels < 1:
+            raise ValueError(f"unsupported WAV layout (0 channels): {self.path}")
+        self.tag, self.channels, self.sample_rate, self.bits = (
+            tag, channels, rate, bits,
+        )
+        self._frame_bytes = channels * (bits // 8)
+        self.n_frames = self._data_size // self._frame_bytes
+
+    def read(self, start: int, count: int) -> np.ndarray:
+        """Frames [start, start+count) as (channels, count) float32; frames
+        out of range read as silence."""
+        lo = max(0, min(start, self.n_frames))
+        hi = max(0, min(start + count, self.n_frames))
+        out = np.zeros((self.channels, count), np.float32)
+        if hi > lo:
+            with open(self.path, "rb") as f:
+                f.seek(self._data_off + lo * self._frame_bytes)
+                raw = f.read((hi - lo) * self._frame_bytes)
+            x = _decode_pcm(raw, self.tag, self.bits)
+            n = x.size // self.channels
+            out[:, lo - start : lo - start + n] = (
+                x[: n * self.channels].reshape(n, self.channels).T
+            )
+        return out
 
 
 # Valid bit depths per format tag; anything else is rejected at header
@@ -165,6 +233,11 @@ def write_wav(
 
 
 def load_audio(path: str | os.PathLike) -> AudioData:
-    """Decode a WAV file; any other format raises UnsupportedFormatError."""
+    """Decode a WAV or FLAC file; any other format raises
+    UnsupportedFormatError."""
     check_decodable(path)
+    if os.path.splitext(str(path))[1].lower() == ".flac":
+        with open(path, "rb") as f:
+            samples, rate = flac.decode_flac(f.read())
+        return AudioData(samples, rate)
     return read_wav(path)

@@ -12,6 +12,12 @@ Launch counts live here, one per kernel name, so one place shows whether a
 run went through the kernels: `reset_launch_counts()` before the run,
 `launch_counts()` after. A wrapper counts a launch where it launches its
 kernel, never for a plain call.
+
+No kernel has a backward, and a kernel writes its outputs through raw
+pointers, so they carry no `grad_fn`: a differentiated call would lose its
+gradients without an error. Every wrapper therefore raises (`check_no_grad`)
+when grad mode is on and one of its tensors requires grad, on every device.
+Training takes the canonical route (core/train.py::separation_loss).
 """
 
 from __future__ import annotations
@@ -43,6 +49,20 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
+
+
+def check_no_grad(kernel: str, *tensors: torch.Tensor | None) -> None:
+    """Raise RuntimeError if grad mode is on and one of `tensors` requires
+    grad: `kernel` has no backward."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, but the kernel has no "
+            f"backward; run it under torch.no_grad() on detached tensors, or "
+            f"differentiate the canonical route (multi_stem_masks with "
+            f"pallas_head=False, pallas_encoder=False)"
+        )
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:

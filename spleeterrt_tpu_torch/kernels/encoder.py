@@ -38,6 +38,7 @@ from spleeterrt_tpu_torch.kernels import (
     check_act,
     check_grid,
     check_layer,
+    check_no_grad,
     check_tensor,
     count_launch,
     epilogue_table,
@@ -115,6 +116,7 @@ def enc1(
     dtype,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """enc1 -> (skip, act), each (S * B, T/2, F/2, 16) in `dtype`."""
+    check_no_grad("enc1", mag, w, b, bn_scale, bn_shift)
     dev = mag.device
     check_tensor(mag, "mag", torch.float32, 4, dev)
     bsz, c, t, f = mag.shape
@@ -177,6 +179,7 @@ def enc_s2(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """enc2, enc3 or enc4 -> (skip, act), each (S * B, H/2, W/2, 2C) in
     x's dtype; image i uses stem i // B's weights."""
+    check_no_grad("enc_s2", x, w, b, bn_scale, bn_shift)
     dev = x.device
     check_tensor(x, "x", DTYPES, 4, dev)
     sb, h, wd, c = x.shape

@@ -33,6 +33,7 @@ from spleeterrt_tpu_torch.kernels import (
     DTYPES,
     check_act,
     check_grid,
+    check_no_grad,
     check_tensor,
     count_launch,
     launch,
@@ -75,6 +76,7 @@ def mask_head(
     act: str,
 ) -> torch.Tensor:
     """up6 + up7 + sigmoid -> masks (S * B, 2, 2H, 2W) float32."""
+    check_no_grad("mask_head", x, w6, b6, bn_scale6, bn_shift6, w7, b7)
     dev = x.device
     check_tensor(x, "x", DTYPES, 4, dev)
     sb, h, wd, c = x.shape

@@ -26,6 +26,7 @@ import torch
 
 from spleeterrt_tpu_torch.kernels import (
     _build,
+    check_no_grad,
     check_tensor as _check,
     count_launch,
     irfft_twiddles,
@@ -95,6 +96,7 @@ def irfft4096(
 ) -> torch.Tensor:
     """-> (..., 4096) float32: irfft(spec) * window (no window: irfft),
     frame by frame."""
+    check_no_grad("irfft4096", spec, window)
     n_frames = _check_spec_window(spec, window)
     if spec.device.type == "cpu":
         return irfft4096_plain(spec, window)
@@ -139,6 +141,7 @@ def masked_irfft4096(
     """-> (S, ..., 4096) float32: for each stem s, irfft(spec * blend) *
     window, where blend is masks[s] below bin_limit and out_band[s] from
     it on (the reference's contract, with the window as a tensor)."""
+    check_no_grad("masked_irfft4096", spec, masks, out_band, window)
     n_frames = _check_spec_window(spec, window)
     dev = spec.device
     _check(masks, "masks", torch.float32, spec.ndim + 1, dev)

@@ -42,6 +42,7 @@ from spleeterrt_tpu_torch.core.transform import overlap_add
 from spleeterrt_tpu_torch.kernels import (
     _build,
     check_grid,
+    check_no_grad,
     check_tensor as _check,
     count_launch,
     irfft_twiddles,
@@ -131,6 +132,7 @@ def stft4096(
     (c = rows / tracks) and frame tile * time_step + t land in image track *
     n_tiles + tile, channel ch, row t. With one track that is (n_tiles,
     rows, time_step, bin_limit)."""
+    check_no_grad("stft4096", audio, window)
     dev = audio.device
     _check(audio, "audio", torch.float32, 2, dev)
     _check(window, "window", torch.float32, 1, dev)
@@ -214,6 +216,7 @@ def masked_istft4096(
     frame f of row track * c + ch reads mask row masks[s, track * n_tiles +
     f // time_step, ch, f % time_step] (the layout :func:`stft4096` gives
     the magnitude, and the U-Net its masks)."""
+    check_no_grad("masked_istft4096", spec, masks, out_band, window)
     dev = spec.device
     _check(spec, "spec", torch.complex64, 3, dev)
     _check(masks, "masks", torch.float32, 5, dev)

@@ -55,6 +55,7 @@ from spleeterrt_tpu_torch.kernels import (
     check_act,
     check_grid,
     check_layer,
+    check_no_grad,
     check_tensor,
     count_launch,
     epilogue_table,
@@ -169,6 +170,7 @@ def up_shallow(
     act: str,
 ) -> torch.Tensor:
     """up4 or up5 -> (S * B, 2H, 2W, C/2) in the sources' dtype."""
+    check_no_grad("up_shallow", skip, prev, w, b, bn_scale, bn_shift)
     _check_sources(skip, prev, ("skip", "prev"))
     dev = skip.device
     sb, h, wd, c = skip.shape
@@ -362,6 +364,7 @@ def head(
     act: str,
 ) -> torch.Tensor:
     """up6 + up7 + sigmoid -> masks (S, B, 2, 2H, 2W) float32."""
+    check_no_grad("head", skip1, up5, w6, b6, bn_scale6, bn_shift6, w7, b7)
     _check_sources(skip1, up5, ("skip1", "up5"))
     dev = skip1.device
     sb, h, wd, c = skip1.shape

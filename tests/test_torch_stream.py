@@ -249,8 +249,8 @@ def test_cli_stream_refuses_missing_cuda(tmp_path, monkeypatch):
 
 
 def test_cli_stream_refuses_other_formats(tmp_path):
-    song = tmp_path / "song.flac"
-    song.write_bytes(b"fLaC\0\0\0\0")
-    with pytest.raises(SystemExit, match="WAV only"):
+    song = tmp_path / "song.mp3"
+    song.write_bytes(b"ID3\0\0\0\0")
+    with pytest.raises(SystemExit, match="WAV and FLAC only"):
         cli_stream.main([str(song), "--random-weights", "--device", "cpu",
                          "--output", str(tmp_path / "out")])
