@@ -117,6 +117,26 @@ Phases, each of which raises (non-zero exit) on failure:
    plain versions on CPU tensors, bf16 beside it; and train_and_deploy
    (120 fp32 steps, batch 4): SI-SDR rises, the blob round trip within
    1e-5.
+18. The device mesh (parallel/*). At world 1, an NCCL group of one rank in
+   this process, each entry point beside the port's unsharded graph on the
+   card (VST config, bf16): separate_4stem_sharded at 300 s,
+   separate_batch_sharded at B = 16 x 60 s, make_stream_fn at K = 16 (a
+   block step with the state carried), stream_scan_sharded over 4 blocks,
+   separate_4stem_timesharded_padded at 300 s and make_sharded_train_step
+   at examples/train.py's defaults (2 stems, B = 8 x 256 x 1024, bf16,
+   deterministic cuDNN; loss, params and EMA): the largest difference (or
+   "bit for bit"), the launch counts of each call, which must equal the
+   unsharded graph's, and ms a call of each by CUDA events. Then two ranks
+   spawned on the one card over gloo (NCCL refuses two ranks on one
+   device), each held against its own one-process result on the card: the
+   time-sharded 4-stem graph at 300 s with data over both ranks (the halo
+   exchange; fp32 within 1e-5 of the signal's peak, bf16 per-stem SNR >=
+   42 dB), compute_masks_sharded with stems over both ranks (30 s; fp32
+   within 1e-5, bf16 >= 42 dB) and the sharded train step with a stem a
+   rank (fp32, B = 2: the loss to rtol 1e-5 and each rank's clipped
+   gradients within 1e-4 of each leaf's max |g|). A rank that fails fails
+   the run. The two-rank times are wall times of two processes sharing
+   one card, not scaling numbers.
 
 Phase 2 also runs K1 and K7 with four 30 s tracks folded into their rows
 (tracks = 4): against their plain versions, twice bit-identical, and each
@@ -140,6 +160,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import datetime
 import io
 import json
 import math
@@ -149,11 +170,13 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.error
 import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spleeterrt_tpu_torch import cli, cli_stream, kernels
 from spleeterrt_tpu_torch.config import (
@@ -182,6 +205,8 @@ from spleeterrt_tpu_torch.kernels import (
     stft_fused,
     tail,
 )
+from spleeterrt_tpu_torch.parallel import distributed, timeshard
+from spleeterrt_tpu_torch.parallel import mesh as pmesh
 from spleeterrt_tpu_torch.runtime import executor, server, stream
 from spleeterrt_tpu_torch.utils.metrics import snr_db
 
@@ -2185,6 +2210,297 @@ def phase_train(device, smi: str) -> None:
             f"{train_and_deploy.ROUNDTRIP_MAX_ERR}) ({smi})")
 
 
+# ---------------------------------------------------------------------------
+# The device mesh (parallel/*): world 1 over NCCL beside the unsharded
+# graphs, then two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_SECONDS = 300.0  # the offline and time-sharded graphs' track
+MESH_BATCH, MESH_BATCH_SECONDS = 16, 60.0  # separate_batch_sharded
+MESH_STREAMS = 16  # make_stream_fn
+MESH_ITERS = 5  # CUDA-event timing iterations a graph
+MESH_REL_BOUND = 1e-5  # fp32 two ranks vs one process, of the signal's peak
+MESH_RANKS = 2
+MESH_RANK_DEADLINE_S = 400
+
+
+def _flat(x) -> list[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _flat(v)]
+    return [t for v in x for t in _flat(v)]
+
+
+def max_diff(a, b) -> float:
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(_flat(a), _flat(b), strict=True))
+
+
+def diff_text(d: float) -> str:
+    return "bit for bit" if d == 0.0 else f"largest difference {d:.3e}"
+
+
+def mesh_pair(tag: str, sharded, plain, smi: str) -> float:
+    """sharded() beside plain() at world 1: the largest difference, the
+    launch counts of each call (which must be equal) and ms a call by CUDA
+    events; returns the difference."""
+    runs = {}
+    for name, fn in (("sharded", sharded), ("unsharded", plain)):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[name] = (out, kernels.launch_counts())
+    d = max_diff(runs["sharded"][0], runs["unsharded"][0])
+    counts = {k: v for k, v in runs["sharded"][1].items() if v}
+    ms = {name: cuda_ms(fn, iters=MESH_ITERS, warmup=1)
+          for name, fn in (("sharded", sharded), ("unsharded", plain))}
+    log(f"[mesh world 1] {tag}: {diff_text(d)}; launches {counts} (unsharded "
+        f"the same: {runs['sharded'][1] == runs['unsharded'][1]}); "
+        f"{ms['sharded']:.3f} ms a call sharded, {ms['unsharded']:.3f} ms "
+        f"unsharded (CUDA events, {smi})")
+    if runs["sharded"][1] != runs["unsharded"][1]:
+        raise AssertionError(f"mesh {tag}: launches {runs['sharded'][1]} vs "
+                             f"the unsharded graph's {runs['unsharded'][1]}")
+    return d
+
+
+def mesh_train_batch(cfg, batch: int, device, seed: int = SEED):
+    """Random magnitudes at examples/train.py's crop: (mix (B, T, F, 2),
+    targets (S, B, T, F, 2)) on the card, scaled as training scales them."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (batch, cfg.time_step, cfg.bin_limit, 2)
+    mix = torch.rand(shape, generator=gen) * 0.05
+    tgt = torch.stack([mix * torch.rand(shape, generator=gen)
+                       for _ in TRAIN_STEMS])
+    return mix.to(device), tgt.to(device)
+
+
+def phase_mesh_world1(device, smi: str) -> None:
+    """Each mesh entry point at world 1 (an NCCL group of one rank) beside
+    the port's unsharded graph on the card."""
+    mesh = pmesh.make_mesh(1)
+    cfg = vst_config(torch.bfloat16)
+    stacked = random_stacked(device)
+    x = torch.from_numpy(synthetic_audio(MESH_SECONDS)).to(device)
+    padded = transform.pad_offline(x, cfg.transform).contiguous()
+    mesh_pair(f"separate_4stem_sharded {MESH_SECONDS:.0f} s",
+              lambda: pmesh.separate_4stem_sharded(stacked, padded, cfg, mesh),
+              lambda: separate.separate_4stem(stacked, padded, cfg), smi)
+
+    tracks = torch.from_numpy(np.stack([
+        synthetic_audio(MESH_BATCH_SECONDS, seed=SEED + k)
+        for k in range(MESH_BATCH)])).to(device)
+    tracks = transform.pad_offline(tracks, cfg.transform).contiguous()
+    mesh_pair(f"separate_batch_sharded B = {MESH_BATCH} x "
+              f"{MESH_BATCH_SECONDS:.0f} s",
+              lambda: pmesh.separate_batch_sharded(stacked, tracks, cfg, mesh),
+              lambda: separate.separate_nstem_batch(stacked, tracks, cfg,
+                                                    separate.OUT_BAND_4), smi)
+    del tracks
+
+    step, n_ranks = pmesh.make_stream_fn(cfg, mesh, 4)
+    blocks = torch.from_numpy(np.stack([
+        synthetic_audio(BLOCK_SECONDS, seed=SEED + k)[:, :BLOCK_LEN]
+        for k in range(MESH_STREAMS)])).to(device)
+    carry = {"sharded": stream.init_state_streams(cfg, 4, MESH_STREAMS // n_ranks,
+                                                  device),
+             "unsharded": stream.init_state_streams(cfg, 4, MESH_STREAMS, device)}
+
+    def stream_step(name):
+        fn = step if name == "sharded" else (
+            lambda p, st, b: stream.block_step_streams(p, st, b, cfg, 4))
+        carry[name], out = fn(stacked, carry[name], blocks)
+        return out
+
+    mesh_pair(f"make_stream_fn K = {MESH_STREAMS} (a block step, the state "
+              f"carried)", lambda: stream_step("sharded"),
+              lambda: stream_step("unsharded"), smi)
+
+    scan_audio = x[:, :STREAM_QUALITY_BLOCKS * BLOCK_LEN]
+    mesh_pair(f"stream_scan_sharded {STREAM_QUALITY_BLOCKS} blocks",
+              lambda: pmesh.stream_scan_sharded(stacked, scan_audio, cfg, mesh),
+              lambda: stream.stream_scan(stacked, scan_audio, cfg), smi)
+
+    mesh_pair(f"separate_4stem_timesharded_padded {MESH_SECONDS:.0f} s",
+              lambda: timeshard.separate_4stem_timesharded_padded(
+                  stacked, x, cfg, mesh),
+              lambda: torch.stack(list(separate.separate(
+                  x, stacked_params=stacked, cfg=cfg, device=device).values())),
+              smi)
+    del x, padded
+
+    tcfg = train_config(torch.bfloat16)
+    batch = mesh_train_batch(tcfg, TRAIN_BATCH, device)
+    nets = training_nets(SEED, device)
+    states = {"sharded": train.shard_train_state(
+        train.init_train_state(nets, TRAIN_LR, ema=True), mesh, len(TRAIN_STEMS)),
+        "unsharded": train.init_train_state(nets, TRAIN_LR, ema=True)}
+    steps = {"sharded": train.make_sharded_train_step(
+        mesh, STEM_MODE_4, tcfg.compute_dtype, TRAIN_EMA),
+        "unsharded": train.make_train_step(STEM_MODE_4, tcfg.compute_dtype,
+                                           TRAIN_EMA)}
+
+    def train_step(name):
+        states[name], loss = steps[name](states[name], *batch)
+        return [loss, states[name].params, states[name].ema_params]
+
+    with cudnn_deterministic(True):
+        mesh_pair(f"make_sharded_train_step ({len(TRAIN_STEMS)} stems, B = "
+                  f"{TRAIN_BATCH} x {tcfg.time_step} x {tcfg.bin_limit}, bf16; "
+                  f"loss, params and EMA after each step)",
+                  lambda: train_step("sharded"), lambda: train_step("unsharded"),
+                  smi)
+
+
+def mesh_rank(rank: int, store: str, out) -> None:
+    """One of MESH_RANKS ranks sharing the card over gloo: the time-sharded
+    graph's halo exchange, the stem-sharded masks and the sharded train
+    step, each against this process's own one-rank result on the card."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = distributed.initialize(
+            "cuda", backend="gloo", world_size=MESH_RANKS, rank=rank,
+            local_rank=0, store=dist.FileStore(store, MESH_RANKS),
+            timeout=datetime.timedelta(seconds=120))
+        out.put((rank, None, mesh_rank_checks(dev)))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put((rank, traceback.format_exc(), None))
+    finally:
+        distributed.shutdown()
+
+
+def wall_ms(fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_rank_checks(dev) -> list[str]:
+    """The checks of `mesh_rank`; returns its report lines, raising where a
+    result leaves its bound."""
+    lines = []
+    by_data, by_stem = pmesh.make_mesh(1), pmesh.make_mesh(MESH_RANKS)
+    stacked = random_stacked(dev)
+    x = torch.from_numpy(synthetic_audio(MESH_SECONDS)).to(dev)
+    peak = float(x.abs().max())
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = vst_config(dtype)
+        fn = lambda: timeshard.separate_4stem_timesharded_padded(stacked, x, cfg,
+                                                                 by_data)
+        fn()  # warm
+        got, ms = wall_ms(fn)
+        ref, ref_ms = wall_ms(lambda: torch.stack(list(separate.separate(
+            x, stacked_params=stacked, cfg=cfg, device=dev).values())))
+        line = (f"time-sharded 4 stems {MESH_SECONDS:.0f} s {dtype}, data over "
+                f"{MESH_RANKS} ranks (halo exchange): {ms:.3f} ms of wall on two "
+                f"ranks sharing the card beside {ref_ms:.3f} ms one process "
+                f"(not a scaling number); ")
+        if dtype == torch.float32:
+            d = max_diff(got, ref)
+            lines.append(line + f"{diff_text(d)} = {d / peak:.3e} of the "
+                         f"signal's peak (<= {MESH_REL_BOUND})")
+            if not d <= MESH_REL_BOUND * peak:
+                raise AssertionError(lines[-1])
+        else:
+            snrs = [snr_db(g.cpu().numpy(), r.cpu().numpy())
+                    for g, r in zip(got, ref)]
+            lines.append(line + "per-stem SNR vs one process " + " ".join(
+                f"{v:.2f}" for v in snrs) + f" dB (>= {SNR_BF16_MIN_DB})")
+            if not min(snrs) >= SNR_BF16_MIN_DB:
+                raise AssertionError(lines[-1])
+        del got, ref
+
+    mix = transform.pad_offline(x[:, :int(SMOKE_SECONDS * SR)],
+                                TransformConfig()).contiguous()
+    spec = transform.stft(mix, TransformConfig(), mix.shape[-1])
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = vst_config(dtype)
+        got = pmesh.compute_masks_sharded(stacked, spec, cfg, by_stem)
+        ref = separate.compute_masks_multi(stacked, spec, cfg, STEM_MODE_4)
+        d = max_diff(got, ref)
+        snrs = [snr_db(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(got, ref)]
+        lines.append(f"compute_masks_sharded {SMOKE_SECONDS:.0f} s {dtype}, stems "
+                     f"over {MESH_RANKS} ranks: {diff_text(d)}, per-stem SNR vs "
+                     f"one process {' '.join(f'{v:.2f}' for v in snrs)} dB ("
+                     + (f"<= {MESH_REL_BOUND} of the masks' peak 1)"
+                        if dtype == torch.float32 else f">= {SNR_BF16_MIN_DB} dB)"))
+        if not (d <= MESH_REL_BOUND if dtype == torch.float32
+                else min(snrs) >= SNR_BF16_MIN_DB):
+            raise AssertionError(lines[-1])
+
+    tcfg = train_config(torch.float32)
+    batch = mesh_train_batch(tcfg, CHECK_BATCH, dev)
+    nets = training_nets(SEED, dev)
+    with cudnn_deterministic(True):
+        one = train.init_train_state(nets, TRAIN_LR)
+        one, ref_loss = train.make_train_step(STEM_MODE_4, torch.float32)(one, *batch)
+        shard = train.shard_train_state(train.init_train_state(nets, TRAIN_LR),
+                                        by_stem, len(TRAIN_STEMS))
+        shard, loss = train.make_sharded_train_step(
+            by_stem, STEM_MODE_4, torch.float32)(shard, *batch)
+    g = dist.get_rank()
+    worst = max(
+        float((a.grad - b.grad[g:g + 1]).abs().max() / b.grad[g:g + 1].abs().max()
+              .clamp(min=1e-30))
+        for a, b in zip(train.param_leaves(shard.params),
+                        train.param_leaves(one.params)))
+    lines.append(f"sharded train step fp32, {len(TRAIN_STEMS)} stems over "
+                 f"{MESH_RANKS} ranks, B = {CHECK_BATCH} x {tcfg.time_step} x "
+                 f"{tcfg.bin_limit}: loss {float(loss):.7f} vs one process "
+                 f"{float(ref_loss):.7f}; this rank's clipped gradients, worst "
+                 f"leaf max|dg| / max|g| {worst:.3e} (<= {TRAIN_GRAD_REL_BOUND})")
+    if not (worst <= TRAIN_GRAD_REL_BOUND
+            and abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))):
+        raise AssertionError(lines[-1])
+    return lines
+
+
+def phase_mesh_two_ranks(smi: str) -> None:
+    """MESH_RANKS spawned ranks on the one card over gloo (mesh_rank); a
+    rank that fails, or gives no result by the deadline, fails the run."""
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=mesh_rank, args=(r, store, out), daemon=True)
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for _ in procs:
+                rank, error, lines = out.get(timeout=MESH_RANK_DEADLINE_S)
+                if error is not None:
+                    raise AssertionError(f"mesh rank {rank} failed:\n{error}")
+                for line in lines:
+                    log(f"[mesh two ranks] rank {rank}: {line} ({smi})")
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    log(f"[mesh two ranks] both ranks done in {time.perf_counter() - t0:.3f} s "
+        f"(spawn, kernel library load and the checks)")
+
+
+def phase_mesh(device, smi: str) -> None:
+    """The mesh entry points at world 1 over NCCL, then two ranks sharing
+    the card over gloo."""
+    t0 = time.perf_counter()
+    with distributed.process_group(device.type) as dev:
+        log(f"[mesh world 1] process group up: backend "
+            f"{dist.get_backend()}, world {dist.get_world_size()}, {dev}")
+        phase_mesh_world1(dev, smi)
+    phase_mesh_two_ranks(smi)
+    log(f"[mesh] phase done in {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2215,6 +2531,7 @@ def main() -> int:
     phase_timing_2stem(device)
     phase_batch_timing(device)
     phase_train(device, smi)
+    phase_mesh(device, smi)
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
     # 2-stem CLI's round-3 route for K10.

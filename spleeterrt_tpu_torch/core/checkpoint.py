@@ -8,6 +8,14 @@ EMA shadow, and `restore` copies them into a template state on the
 template's device. `train_state_from_jax` carries a state over from the
 reference package: its params and its Adam moments, which are elementwise
 and so take the weights' layout change.
+
+A sharded state (core/train.py::shard_train_state) is saved in the same
+format: `save` gathers every stem group's slice of the params, the Adam
+moments of each leaf and the EMA, and the coordinator (rank 0) writes the
+file; `restore` gives each rank its stem group's slice of what the file
+holds. So a run saved at one world size resumes at another, bit for bit.
+Both are collective in a sharded run, and every rank must see the
+checkpoint's directory.
 """
 
 from __future__ import annotations
@@ -16,9 +24,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spleeterrt_tpu_torch.core import weights
-from spleeterrt_tpu_torch.core.model import Params
+from spleeterrt_tpu_torch.core.model import Params, num_stems
 from spleeterrt_tpu_torch.core.train import (
     ADAM_BETAS,
     ADAM_EPS,
@@ -26,6 +35,7 @@ from spleeterrt_tpu_torch.core.train import (
     param_leaves,
     trainable,
 )
+from spleeterrt_tpu_torch.parallel.distributed import all_gather_cat, is_coordinator
 
 STATE_FILE = "train_state.pt"
 
@@ -37,18 +47,42 @@ def _host(params: Params | None) -> Params | None:
             for ln, ly in params.items()}
 
 
+def _gathered(state: TrainState) -> dict:
+    """What `save` writes, every stem group's slice stacked again (host
+    tensors). Collective over a sharded state's stem groups."""
+    group = state.mesh.get_group("stem")
+    whole = lambda t: all_gather_cat(t.detach(), group).cpu()
+    params = lambda p: None if p is None else {
+        ln: {fn: whole(v) for fn, v in ly.items()} for ln, ly in p.items()}
+    opt = state.optimizer.state_dict()
+    opt["state"] = {
+        i: {k: (v if k == "step" else whole(v)) for k, v in moments.items()}
+        for i, moments in opt["state"].items()}
+    return {"params": params(state.params), "optimizer": opt,
+            "step": state.step, "ema_params": params(state.ema_params)}
+
+
 def save(path: str | os.PathLike, state: TrainState) -> None:
-    """Write a checkpoint directory (overwrites)."""
-    os.makedirs(path, exist_ok=True)
-    target = os.path.join(path, STATE_FILE)
-    tmp = target + ".tmp"
-    torch.save({
-        "params": _host(state.params),
-        "optimizer": state.optimizer.state_dict(),
-        "step": state.step,
-        "ema_params": _host(state.ema_params),
-    }, tmp)
-    os.replace(tmp, target)
+    """Write a checkpoint directory (overwrites). For a sharded state every
+    rank calls it; the coordinator writes, and all return once the file is
+    in place."""
+    if state.mesh is not None:
+        data = _gathered(state)
+    else:
+        data = {
+            "params": _host(state.params),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+            "ema_params": _host(state.ema_params),
+        }
+    if is_coordinator():
+        os.makedirs(path, exist_ok=True)
+        target = os.path.join(path, STATE_FILE)
+        tmp = target + ".tmp"
+        torch.save(data, tmp)
+        os.replace(tmp, target)
+    if state.mesh is not None:
+        dist.barrier()
 
 
 def _copy_into(dst: Params, src: Params) -> None:
@@ -58,14 +92,35 @@ def _copy_into(dst: Params, src: Params) -> None:
                 v.copy_(src[ln][fn])
 
 
+def _slice(data: dict, template: TrainState) -> dict:
+    """The rows of a sharded template's stem group in a whole checkpoint."""
+    g, n_groups = template.mesh.get_coordinate()[0], template.mesh.size(0)
+    per = num_stems(template.params)
+    if num_stems(data["params"]) != per * n_groups:
+        raise ValueError(f"a checkpoint of {num_stems(data['params'])} nets "
+                         f"for {n_groups} stem groups of {per}")
+    rows = slice(g * per, (g + 1) * per)
+    params = lambda p: None if p is None else {
+        ln: {fn: v[rows] for fn, v in ly.items()} for ln, ly in p.items()}
+    opt = dict(data["optimizer"])
+    opt["state"] = {
+        i: {k: (v if k == "step" else v[rows]) for k, v in moments.items()}
+        for i, moments in opt["state"].items()}
+    return {**data, "params": params(data["params"]), "optimizer": opt,
+            "ema_params": params(data["ema_params"])}
+
+
 def restore(path: str | os.PathLike, template: TrainState) -> TrainState:
     """Restore into `template` (its params, optimizer and EMA tensors, on
-    their devices) and return it. Both must hold an EMA, or neither."""
+    their devices) and return it. Both must hold an EMA, or neither. A
+    sharded template (every rank calls it) takes its stem group's rows."""
     data = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                       weights_only=True)
     if (data["ema_params"] is None) != (template.ema_params is None):
         raise ValueError(f"{path}: the checkpoint and the template disagree "
                          f"on holding an EMA")
+    if template.mesh is not None:
+        data = _slice(data, template)
     _copy_into(template.params, data["params"])
     template.optimizer.load_state_dict(data["optimizer"])
     template.step = int(data["step"])

@@ -42,6 +42,8 @@ as the in-place `re *= mask; im *= mask` loops (Executable/main.c:473-494).
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -49,9 +51,7 @@ from spleeterrt_tpu_torch.config import STEM_MODE_2, STEM_MODE_4, SeparatorConfi
 from spleeterrt_tpu_torch.core import transform
 from spleeterrt_tpu_torch.core.model import (
     Params,
-    multi_stem_forward,
     multi_stem_masks,
-    unet_forward,
     with_stem_axis,
 )
 from spleeterrt_tpu_torch.kernels import pallas_fft, stft_fused
@@ -60,6 +60,14 @@ from spleeterrt_tpu_torch.kernels import pallas_fft, stft_fused
 # stem except bass at 0.0 (VST/Source/Spleeter4Stems.c:73,281).
 OUT_BAND_4 = (0.25, 0.0, 0.25, 0.25)  # drums, bass, accompaniment, vocals
 OUT_BAND_5 = (0.25, 0.25, 0.0, 0.25, 0.25)  # vocals, drums, bass, piano, other
+
+# The U-Net call of every graph: (stacked params, NCHW magnitude tiles (B,
+# 2, T, F), stem_mode, compute_dtype, sigmoid) -> (S, B, 2, T, F) float32
+# masks. The graphs take it as `unet`; model.multi_stem_masks runs every
+# stem over every tile on this device, and parallel/mesh.py passes one that
+# spreads stems and tiles over the ranks of a device mesh.
+UNet = Callable[..., torch.Tensor]
+
 
 def num_tiles(n_frames: int, time_step: int) -> int:
     """ceil; the reference always runs one (possibly zero-padded) tail tile
@@ -98,33 +106,35 @@ def apply_mask(
 
 def compute_masks(
     params: Params, spec: torch.Tensor, cfg: SeparatorConfig, stem_mode: int,
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """Single-net masks for every frame: (2, n_frames, bin_limit)."""
-    masks = unet_forward(params, spec_to_tiles(spec, cfg), stem_mode,
-                         cfg.compute_dtype, cfg.sigmoid)
-    return tiles_to_frames(masks, spec.shape[-2])
+    return compute_masks_multi(with_stem_axis(params), spec, cfg, stem_mode,
+                               unet)[0]
 
 
 def single_net_masks(
     params: Params, mag: torch.Tensor, cfg: SeparatorConfig, stem_mode: int,
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """One net over NCHW magnitude tiles (n_tiles, 2, T, F) -> masks (1,
     n_tiles, 2, T, F) float32, the masked iSTFT's layout, whichever route
     the U-Net takes (the reference's `_masks_cd_tracks` for one track)."""
-    return multi_stem_masks(with_stem_axis(params), mag, stem_mode,
-                            cfg.compute_dtype, cfg.sigmoid)
+    return unet(with_stem_axis(params), mag, stem_mode, cfg.compute_dtype,
+                cfg.sigmoid)
 
 
 def compute_masks_multi(
     stacked_params: Params, spec: torch.Tensor, cfg: SeparatorConfig,
-    stem_mode: int,
+    stem_mode: int, unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """S stacked nets -> (S, 2, n_frames, bin_limit)."""
-    masks = multi_stem_forward(
-        stacked_params, spec_to_tiles(spec, cfg), stem_mode, cfg.compute_dtype,
-        cfg.sigmoid,
-    )
-    return torch.stack([tiles_to_frames(m, spec.shape[-2]) for m in masks])
+    tiles = spec_to_tiles(spec, cfg).permute(0, 3, 1, 2).contiguous()
+    masks = unet(stacked_params, tiles, stem_mode, cfg.compute_dtype,
+                 cfg.sigmoid)  # (S, n_tiles, 2, T, F)
+    s, nt, c, t, f = masks.shape
+    frames = masks.transpose(1, 2).reshape(s, c, nt * t, f)
+    return frames[:, :, : spec.shape[-2]].contiguous()
 
 
 def fused_transform(cfg: SeparatorConfig) -> bool:
@@ -161,6 +171,7 @@ def _nstem_fused(
     cfg: SeparatorConfig,
     out_band: tuple[float, ...],
     stem_mode: int,
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """The fused N-stem body over B tracks -> (B, S, 2, out_len), a view:
     one K1 with the tracks folded into its rows, one U-Net pass over the
@@ -172,8 +183,8 @@ def _nstem_fused(
     n_out, n_comp, n_req = frame_counts(data_size, cfg)
     spec, mag = fused_stft(tracks.reshape(b * rows, data_size), cfg, n_comp,
                            n_req, b)
-    masks = multi_stem_masks(stacked_params, mag, stem_mode, cfg.compute_dtype,
-                             cfg.sigmoid)  # (S, B * n_tiles, 2, T, F)
+    masks = unet(stacked_params, mag, stem_mode, cfg.compute_dtype,
+                 cfg.sigmoid)  # (S, B * n_tiles, 2, T, F)
     out = stft_fused.masked_istft4096(
         spec, masks, torch.tensor(out_band, dtype=torch.float32, device=dev),
         transform.synthesis_window(cfg.transform, device=dev), n_out, b,
@@ -192,6 +203,7 @@ def separate_nstem(
     audio: torch.Tensor,  # (2, data_size) pre-padded, see transform.pad_offline
     cfg: SeparatorConfig,
     out_band: tuple[float, ...],
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """S independent nets over the same input, one mask per stem -> stems
     (S, 2ch, out_len) with out_len = n_frames * hop + fft_size - hop >=
@@ -203,15 +215,16 @@ def separate_nstem(
     `transform.istft` a stem (the reference's vmap over stems).
 
     Tensors on a CUDA device run the kernels; CPU tensors run their plain
-    versions (kernels/stft_fused.py, kernels/pallas_fft.py)."""
+    versions (kernels/stft_fused.py, kernels/pallas_fft.py). `unet` is the
+    U-Net call (see `UNet`)."""
     tcfg = cfg.transform
     if fused_transform(cfg):
         return _nstem_fused(stacked_params, audio[None], cfg, out_band,
-                            STEM_MODE_4)[0]
+                            STEM_MODE_4, unet)[0]
     data_size = audio.shape[-1]
     dev = audio.device
     spec = transform.stft(audio, tcfg, data_size)
-    masks = compute_masks_multi(stacked_params, spec, cfg, STEM_MODE_4)
+    masks = compute_masks_multi(stacked_params, spec, cfg, STEM_MODE_4, unet)
     if tcfg.fft_size == pallas_fft.N:
         frames = pallas_fft.masked_irfft4096(
             spec, masks, torch.tensor(out_band, dtype=torch.float32, device=dev),
@@ -260,13 +273,21 @@ def separate_2stem_batch(
     vocals. At any other hop each track runs :func:`separate_2stem`."""
     if not fused_transform(cfg):
         return _per_track(lambda a: separate_2stem(params, a, cfg), tracks)
+    return _2stem_fused(params, tracks, cfg, multi_stem_masks)
+
+
+def _2stem_fused(
+    params: Params, tracks: torch.Tensor, cfg: SeparatorConfig, unet: UNet,
+) -> torch.Tensor:
+    """The fused 2-stem body over B tracks -> (B, 2 stems, 2ch, out_len)."""
     vocal = _nstem_fused(with_stem_axis(params), tracks, cfg,
-                         (cfg.unaffected_weight,), STEM_MODE_2)[:, 0]
+                         (cfg.unaffected_weight,), STEM_MODE_2, unet)[:, 0]
     return torch.stack([vocal, _residual(tracks, vocal)], dim=1)
 
 
 def separate_2stem(
-    params: Params, audio: torch.Tensor, cfg: SeparatorConfig
+    params: Params, audio: torch.Tensor, cfg: SeparatorConfig,
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """vocals = istft(mask * spec), `unaffected_weight` out of band;
     accompaniment = input - vocals in the time domain (Executable/main.c:
@@ -274,18 +295,19 @@ def separate_2stem(
 
     At hop 1024 the B = 1 case of :func:`separate_2stem_batch`. At any
     other hop: the plain STFT, the U-Net and `transform.istft` (K8 at FFT
-    4096)."""
+    4096). `unet` is the U-Net call (see `UNet`)."""
     if fused_transform(cfg):
-        return separate_2stem_batch(params, audio[None], cfg)[0]
+        return _2stem_fused(params, audio[None], cfg, unet)[0]
     tcfg = cfg.transform
     spec = transform.stft(audio, tcfg, audio.shape[-1])
-    masks = compute_masks(params, spec, cfg, STEM_MODE_2)
+    masks = compute_masks(params, spec, cfg, STEM_MODE_2, unet)
     vocal = transform.istft(apply_mask(spec, masks, cfg), tcfg)
     return torch.stack([vocal, _residual(audio, vocal)])
 
 
 def _separate_3stem_fused(
     params4: Params, params2: Params, tracks: torch.Tensor, cfg: SeparatorConfig,
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """The fused two-pass 3-stem graph over B tracks (B, 2, n) -> (B, 3,
     2ch, out_len), the reference package's `_separate_3stem_fused_tracks`:
@@ -309,12 +331,12 @@ def _separate_3stem_fused(
     nt = n_req // t
     spec, mag = fused_stft(tracks.reshape(b * rows, data_size), cfg, n_comp,
                            n_req, b)
-    dm = single_net_masks(params4, mag, cfg, STEM_MODE_4)  # (1, B * nt, 2, T, F)
+    dm = single_net_masks(params4, mag, cfg, STEM_MODE_4, unet)  # (1, B * nt, 2, T, F)
     inv = 1.0 - dm  # the residual's in-band factor
     in_band = (spec[:, :, :f].reshape(b, rows, nt, t, f).transpose(1, 2)
                .reshape(b * nt, rows, t, f))
     mag2 = (in_band * inv[0]).abs().contiguous()
-    vm = single_net_masks(params2, mag2, cfg, STEM_MODE_2)
+    vm = single_net_masks(params2, mag2, cfg, STEM_MODE_2, unet)
     masks3 = torch.cat([dm, inv * vm, inv])
     out_band = torch.tensor([uw, uw * (1.0 - uw), 1.0 - uw], device=dev)
     drums, vocals, residual = stft_fused.masked_istft4096(
@@ -338,6 +360,7 @@ def separate_3stem_batch(
 
 def separate_3stem(
     params4: Params, params2: Params, audio: torch.Tensor, cfg: SeparatorConfig,
+    unet: UNet = multi_stem_masks,
 ) -> torch.Tensor:
     """The exe's two-pass graph (Executable/main.c:845-970): pass 1 (the
     4-stem-family net, ELU) masks drums; the FREQUENCY-domain residual
@@ -348,16 +371,18 @@ def separate_3stem(
     At hop 1024 the B = 1 case of the fused batch graph
     (:func:`separate_3stem_batch`), as the reference package's
     `_separate_3stem_fused` is. At any other hop: the canonical graph
-    with three `transform.istft` calls (K8 at FFT 4096)."""
+    with three `transform.istft` calls (K8 at FFT 4096). `unet` is the
+    U-Net call (see `UNet`)."""
     if fused_transform(cfg):
-        return _separate_3stem_fused(params4, params2, audio[None], cfg)[0]
+        return _separate_3stem_fused(params4, params2, audio[None], cfg,
+                                     unet)[0]
     tcfg = cfg.transform
     spec = transform.stft(audio, tcfg, audio.shape[-1])
-    drum_masks = compute_masks(params4, spec, cfg, STEM_MODE_4)
+    drum_masks = compute_masks(params4, spec, cfg, STEM_MODE_4, unet)
     drum_spec = apply_mask(spec, drum_masks, cfg)
     residual_spec = spec - drum_spec
     drums = transform.istft(drum_spec, tcfg)
-    vocal_masks = compute_masks(params2, residual_spec, cfg, STEM_MODE_2)
+    vocal_masks = compute_masks(params2, residual_spec, cfg, STEM_MODE_2, unet)
     vocals = transform.istft(apply_mask(residual_spec, vocal_masks, cfg), tcfg)
     accompaniment = transform.istft(residual_spec, tcfg) - vocals
     return torch.stack([drums, vocals, accompaniment])

@@ -1,8 +1,11 @@
-"""Train-and-deploy demonstration: the full loop on one device.
+"""Train-and-deploy demonstration: the full loop over the process group.
 
-The reference package's `examples/train_and_deploy.py` without its mesh.
-It proves the training subsystem closes end to end (the reference ships
-fixed weights only and cannot train at all):
+The reference package's `examples/train_and_deploy.py`, with its mesh:
+the ranks of the process group (world 1 under a plain `python` start)
+train the 2 stem nets on a (stem, data) mesh, 2 stem groups where the
+world is even (core/train.py::make_sharded_train_step). It proves the
+training subsystem closes end to end (the reference ships fixed weights
+only and cannot train at all):
 
 1. synthesize a tone-vs-noise corpus (train batches + holdout tracks),
 2. evaluate holdout SI-SDR with the INITIAL weights through the REAL
@@ -17,7 +20,9 @@ fixed weights only and cannot train at all):
 
 Run: python -m spleeterrt_tpu_torch.examples.train_and_deploy [--steps 120]
      [--batch 4] [--out DIR] [--device cuda|cpu]
-It prints a JSON log and writes it to DIR/train_and_deploy_log.json.
+ or: torchrun --nproc-per-node N -m spleeterrt_tpu_torch.examples.train_and_deploy
+Every rank evaluates the gathered nets; rank 0 writes the blobs and prints
+a JSON log, which it writes to DIR/train_and_deploy_log.json.
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spleeterrt_tpu_torch.cli import open_device
 from spleeterrt_tpu_torch.config import SeparatorConfig
 from spleeterrt_tpu_torch.core import model, separate, train, transform, weights
+from spleeterrt_tpu_torch.parallel import distributed
+from spleeterrt_tpu_torch.parallel.mesh import gather_params, make_mesh
 from spleeterrt_tpu_torch.utils import metrics
 
 SR = 44100
@@ -89,15 +97,25 @@ def make_batch(rng: np.random.Generator, cfg: SeparatorConfig, batch: int,
 
 
 def run(steps: int, batch: int, out_dir: str, device: torch.device) -> dict:
-    """The five steps above on `device` -> the log; raises if training does
-    not improve SI-SDR or the blob round trip moves the separation."""
+    """The five steps above on this rank's device -> the log; raises if
+    training does not improve SI-SDR or the blob round trip moves the
+    separation. Brings a world-1 process group up for the call where none
+    is up; in a group, every rank calls it."""
+    with distributed.process_group(torch.device(device).type) as dev:
+        return _run(steps, batch, out_dir, dev)
+
+
+def _run(steps: int, batch: int, out_dir: str, device: torch.device) -> dict:
     # fp32 throughout: the toy corpus's loss magnitudes (~6e-4) sit at
     # bf16's rounding scale (the reference package's choice for this demo).
     cfg = SeparatorConfig(bin_limit=512, time_step=64, num_stems=2,
                           compute_dtype=torch.float32)
     rng = np.random.default_rng(0)
     holdout = _ToneNoiseDataset(seeds=(101, 102), n=8 * SR)
-    log = {"device": str(device), "steps": steps, "batch": batch}
+    world = dist.get_world_size()
+    mesh = make_mesh(stem_parallel=2 if world % 2 == 0 else 1)
+    log = {"device": str(device), "steps": steps, "batch": batch,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
 
     nets = [model.init_params(torch.Generator().manual_seed(i)) for i in range(2)]
     stacked = weights.params_to(weights.stack_params(nets), device)
@@ -106,7 +124,8 @@ def run(steps: int, batch: int, out_dir: str, device: torch.device) -> dict:
     before = train.evaluate_si_sdr(state.params, holdout, cfg, seconds=6.0)
     log["si_sdr_init"] = before
 
-    step = train.make_train_step(compute_dtype=cfg.compute_dtype)
+    state = train.shard_train_state(state, mesh, n_stems=2)
+    step = train.make_sharded_train_step(mesh, compute_dtype=cfg.compute_dtype)
     t0 = time.perf_counter()
     losses = []
     for i in range(steps):
@@ -117,19 +136,21 @@ def run(steps: int, batch: int, out_dir: str, device: torch.device) -> dict:
     log["loss_curve"] = losses
     log["train_seconds"] = time.perf_counter() - t0
 
-    after = train.evaluate_si_sdr(state.params, holdout, cfg, seconds=6.0)
+    trained = gather_params(state.params, mesh)
+    after = train.evaluate_si_sdr(trained, holdout, cfg, seconds=6.0)
     log["si_sdr_trained"] = after
     log["si_sdr_gain_db"] = after["mean"] - before["mean"]
     if not after["mean"] > before["mean"]:
         raise RuntimeError(f"training did not improve SI-SDR: {log}")
 
     # --- deploy: export .dat blobs, reload, check the same separation ---
-    deployed = train.deploy_params(state.params, cfg.transform.fft_size)
-    blob_paths = []
-    for s, name in enumerate(holdout.stem_names):
-        path = os.path.join(out_dir, f"{name}.dat")
-        weights.save_coeff_file(model.stem_params(deployed, s), path)
-        blob_paths.append(path)
+    deployed = train.deploy_params(trained, cfg.transform.fft_size)
+    blob_paths = [os.path.join(out_dir, f"{name}.dat")
+                  for name in holdout.stem_names]
+    if distributed.is_coordinator():
+        for s, path in enumerate(blob_paths):
+            weights.save_coeff_file(model.stem_params(deployed, s), path)
+    dist.barrier()
     log["blobs"] = [os.path.basename(p) for p in blob_paths]
     log["blob_bytes"] = os.path.getsize(blob_paths[0])
     reloaded = weights.params_to(
@@ -168,9 +189,10 @@ def main(argv=None) -> int:
     out_dir = args.out or tempfile.mkdtemp(prefix="spleeterrt_deploy_")
     os.makedirs(out_dir, exist_ok=True)
     log = run(args.steps, args.batch, out_dir, device)
-    print(json.dumps(log, indent=1))
-    with open(os.path.join(out_dir, "train_and_deploy_log.json"), "w") as f:
-        json.dump(log, f, indent=1)
+    if distributed.is_coordinator():
+        print(json.dumps(log, indent=1))
+        with open(os.path.join(out_dir, "train_and_deploy_log.json"), "w") as f:
+            json.dump(log, f, indent=1)
     return 0
 
 

@@ -415,6 +415,24 @@ def test_evaluate_si_sdr_matches_jax(tmp_path, rng):
     assert not any(kernels.launch_counts().values())  # CPU: plain versions
 
 
+def test_evaluate_si_sdr_keywords_match_jax(tmp_path, rng):
+    """`trained_scale=False` evaluates the nets as given (no deploy fold)
+    and `out_band` weights each stem's bins from bin_limit up, as in the
+    JAX package: within 0.01 dB of its SI-SDR, and unlike the defaults."""
+    root = _write_corpus(tmp_path, rng)
+    jp = _jax_stacked()
+    jp["down1"]["w"] = jp["down1"]["w"] / 4096.0  # nets for raw magnitudes
+    kw = dict(seconds=1.0, out_band=(0.25, 0.5), trained_scale=False)
+    ref = jtrain.evaluate_si_sdr(jp, jds.StemDataset(root, STEMS), JCFG, **kw)
+    nets = train.trainable(_torch(jp))
+    got = train.evaluate_si_sdr(nets, ds.StemDataset(root, STEMS), CFG, **kw)
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= SI_SDR_DB, (k, got[k], ref[k])
+    default = train.evaluate_si_sdr(nets, ds.StemDataset(root, STEMS), CFG,
+                                    seconds=1.0)
+    assert abs(default["mean"] - got["mean"]) > 10 * SI_SDR_DB
+
+
 def test_train_example_resumes_and_exports(tmp_path, rng, capsys):
     """The training entry point on the CPU: 2 steps with a checkpoint, a
     second run resumes from it and takes the third, then exports blobs."""
