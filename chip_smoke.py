@@ -137,6 +137,26 @@ Phases, each of which raises (non-zero exit) on failure:
    gradients within 1e-4 of each leaf's max |g|). A rank that fails fails
    the run. The two-rank times are wall times of two processes sharing
    one card, not scaling numbers.
+19. The host modules and the ranked service. The native runtime
+   (native/) must build with g++; a 60 s stereo FLAC from io/flac.py's
+   encoder decodes bit for bit the same natively and in Python, both
+   times printed. Where libmpg123 loads, a 30 s MP3 made in the phase
+   (libmp3lame by ctypes, else hand-built frames of silence) goes through
+   the 4-stem CLI (VST config, bf16): one 4-stem run's launch counts and
+   four finite stems of the decoded length; else "mp3: libmpg123 absent".
+   The 300 s 4-stem bf16 graph under StageTimer(sync=...) beside the CUDA
+   events of the same call (the difference within the host's enqueue
+   time); a profiler_trace of it must name stft4096_kernel,
+   enc1_mma_kernel and masked_istft4096_kernel; dump_spectrogram_pngs of
+   K1's first magnitude tile must write PNGs holding its pixels. Then
+   /separate_batch over ranks (runtime/server.py with a mesh): at world 1
+   over NCCL, phase 13's three tracks (4 stems, VST config, fp32,
+   deterministic cuDNN) bit for bit with the single-process service and
+   one 4-stem run's launches; two spawned ranks sharing the card over
+   gloo, rank 0 serving on port 0 and the other in serve_rank_loop: fp32
+   within 1e-5 of each stem's peak and bf16 >= 60 dB against the
+   single-process service, and both ranks exit 0 after the stop op code.
+   A rank that fails or misses its deadline fails the run.
 
 Phase 2 also runs K1 and K7 with four 30 s tracks folded into their rows
 (tracks = 4): against their plain versions, twice bit-identical, and each
@@ -165,6 +185,8 @@ import io
 import json
 import math
 import os
+import queue
+import struct
 import subprocess
 import sys
 import tempfile
@@ -173,12 +195,13 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from spleeterrt_tpu_torch import cli, cli_stream, kernels
+from spleeterrt_tpu_torch import cli, cli_stream, kernels, native
 from spleeterrt_tpu_torch.config import (
     STEM_MODE_2,
     STEM_MODE_4,
@@ -196,7 +219,7 @@ from spleeterrt_tpu_torch.core import (
 )
 from spleeterrt_tpu_torch.data import dataset as stem_data
 from spleeterrt_tpu_torch.examples import train_and_deploy
-from spleeterrt_tpu_torch.io import audio as audio_io, flac
+from spleeterrt_tpu_torch.io import audio as audio_io, flac, mp3_fixtures, mpg123
 from spleeterrt_tpu_torch.kernels import (
     _build,
     encoder,
@@ -208,6 +231,7 @@ from spleeterrt_tpu_torch.kernels import (
 from spleeterrt_tpu_torch.parallel import distributed, timeshard
 from spleeterrt_tpu_torch.parallel import mesh as pmesh
 from spleeterrt_tpu_torch.runtime import executor, server, stream
+from spleeterrt_tpu_torch.utils import timing
 from spleeterrt_tpu_torch.utils.metrics import snr_db
 
 SR = 44100
@@ -2501,6 +2525,392 @@ def phase_mesh(device, smi: str) -> None:
     log(f"[mesh] phase done in {time.perf_counter() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# Host modules and the ranked service: the native runtime, MP3 input, stage
+# timing, the profiler scope and spectrogram dumps, /separate_batch over
+# ranks
+# ---------------------------------------------------------------------------
+
+FLAC_SECONDS = 60.0  # the native vs Python FLAC decode
+MP3_SECONDS = SMOKE_SECONDS
+TRACE_KERNELS = ("stft4096_kernel", "enc1_mma_kernel", "masked_istft4096_kernel")
+TRACE_RUNS = 3  # separations inside one profiler_trace
+RANKED_BF16_MIN_DB = 60.0  # two ranks vs one process, bf16
+RANKED_RANKS = 2
+RANKED_DEADLINE_S = 400
+RANKED_POSTS = 2  # requests a path; the first carries one-time set-up
+
+
+def phase_native(smi: str) -> None:
+    """The native library builds (g++ is there: nvcc needs it); a FLAC from
+    io/flac.py's encoder decodes bit for bit the same natively and in
+    Python; both decode times for FLAC_SECONDS of stereo."""
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    if lib is None:
+        raise AssertionError("native.get_lib() is None: the native runtime "
+                             "did not build")
+    log(f"[native] {native.library_path().name} "
+        f"({lib.srt_version().decode()}) in {time.perf_counter() - t0:.3f} s")
+    x = synthetic_audio(FLAC_SECONDS)
+    data = flac.encode_flac(x)
+    t0 = time.perf_counter()
+    got, rate = native.decode_flac_native(data)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref, ref_rate = flac.decode_flac(data, prefer_native=False)
+    python_ms = (time.perf_counter() - t0) * 1e3
+    same = (rate == ref_rate and got.dtype == ref.dtype
+            and got.shape == ref.shape == x.shape and np.array_equal(got, ref))
+    log(f"[native] FLAC {FLAC_SECONDS:.0f} s stereo ({len(data)} bytes): native "
+        f"{'bit for bit with' if same else 'DIFFERS from'} the Python decoder; "
+        f"decode {native_ms:.3f} ms native, {python_ms:.3f} ms Python "
+        f"(host CPU; {smi})")
+    if not same:
+        raise AssertionError("native FLAC decode differs from the Python decoder")
+
+
+def phase_mp3(workdir: str, device) -> None:
+    """The 4-stem CLI on an MP3 made here (LAME where it loads, else frames
+    of digital silence) at the VST config, bf16, random weights: one 4-stem
+    run's launches and four stems of the decoded length."""
+    if not mpg123.available():
+        log("mp3: libmpg123 absent")
+        return
+    x = synthetic_audio(MP3_SECONDS)
+    if mp3_fixtures.lame_available():
+        data, made = mp3_fixtures.lame_encode(x), "libmp3lame"
+    else:
+        n_frames = int(MP3_SECONDS * SR) // mp3_fixtures.SAMPLES_PER_FRAME
+        data, made = mp3_fixtures.silent_frames(n_frames), "silent frames"
+    song = os.path.join(workdir, "smoke_mp3.mp3")
+    with open(song, "wb") as f:
+        f.write(data)
+    n = mpg123.decode_mp3(song)[0].shape[1]
+    out_dir = os.path.join(workdir, "mp3_stems")
+    kernels.reset_launch_counts()
+    rc = cli.main([song, "--stems", "4", "--time-step", str(TIME_STEP),
+                   "--bin-limit", str(BIN_LIMIT), "--random-weights",
+                   "--seed", str(SEED), "--output-dir", out_dir,
+                   "--device", str(device)])
+    launches = kernels.launch_counts()
+    log(f"[mp3] {MP3_SECONDS:.0f} s MP3 ({made}, {len(data)} bytes, {n} "
+        f"samples decoded by libmpg123): cli rc {rc}, launches {launches}")
+    if rc != 0 or launches != expected_launches(MAIN_PATH_LAUNCHES):
+        raise AssertionError(f"MP3 CLI: rc {rc}, launches {launches}")
+    for fname in ("Drum", "Bass", "Accompaniment", "Vocal"):
+        y = audio_io.read_wav(os.path.join(out_dir, f"smoke_mp3_{fname}.wav"))
+        if y.samples.shape != (2, n) or not np.all(np.isfinite(y.samples)):
+            raise AssertionError(f"MP3 {fname}: shape {y.samples.shape} or "
+                                 f"non-finite")
+    log(f"[mp3] 4 finite stems of shape (2, {n}) written")
+
+
+def trace_kernel_names(trace_path: str) -> set[str]:
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events
+            if str(e.get("cat", "")).lower() == "kernel"}
+
+
+def phase_stage_timing(workdir: str, device, smi: str) -> None:
+    """The 300 s 4-stem bf16 graph under StageTimer(sync=...) beside the
+    CUDA-event time of the same call; a profiler_trace of it that names K1,
+    bf16 K2 and K7; K1's magnitude tiles through dump_spectrogram_pngs."""
+    cfg = vst_config(torch.bfloat16)
+    stacked = random_stacked(device)
+    seconds = BENCH_SECONDS[-1]
+    padded = transform.pad_offline(
+        torch.from_numpy(synthetic_audio(seconds)).to(device),
+        cfg.transform).contiguous()
+    run = lambda: separate.separate_4stem(stacked, padded, cfg)
+    run()  # warm
+    timer = timing.StageTimer(verbose=False)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    name = f"separate_4stem {seconds:.0f} s"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.stage(name, sync=padded):
+        start.record()
+        run()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3  # the host's enqueue
+    stage_ms = timer.report()[name] * 1e3
+    event_ms = start.elapsed_time(end)
+    log(f"[stage timer] {name} bf16: StageTimer {stage_ms:.3f} ms, CUDA events "
+        f"{event_ms:.3f} ms of the same call, the host's enqueue {host_ms:.3f} "
+        f"ms ({smi})")
+    # The event span lies inside the stage's, and what the stage adds (the
+    # first launch's enqueue, the wait's wake-up) is host time; 0.05 ms
+    # covers the two clocks' rounding.
+    if not -0.05 <= stage_ms - event_ms <= host_ms:
+        raise AssertionError(f"StageTimer {stage_ms:.3f} ms vs CUDA events "
+                             f"{event_ms:.3f} ms: not within the host's share")
+
+    # A capture can come back without some device kernels (PERF.md,
+    # Findings, PRs 6 and 12), so the trace holds TRACE_RUNS separations
+    # and is retaken, at most three times in all, until it names each one.
+    for attempt in range(1, 4):
+        trace_dir = os.path.join(workdir, f"trace{attempt}")
+        with timing.profiler_trace(trace_dir):
+            for _ in range(TRACE_RUNS):
+                run()
+            torch.cuda.synchronize()
+        names = trace_kernel_names(os.path.join(trace_dir, timing.TRACE_FILE))
+        missing = [k for k in TRACE_KERNELS if not any(k in n for n in names)]
+        log(f"[profiler_trace] capture {attempt}: {len(names)} kernel names in "
+            f"{timing.TRACE_FILE}; " + ", ".join(
+                f"{k}: {'MISSING' if k in missing else 'yes'}" for k in TRACE_KERNELS))
+        if not missing:
+            break
+    else:
+        raise AssertionError(f"profiler_trace never named {missing}")
+
+    n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
+    _, mag = stft_fused.stft4096(
+        padded, transform.analysis_window(4096, device=device), n_comp, n_req,
+        cfg.bin_limit, cfg.time_step)
+    check_spectrogram_pngs(mag[0], os.path.join(workdir, "pngs"))
+
+
+def check_spectrogram_pngs(tile: torch.Tensor, folder: str) -> None:
+    """dump_spectrogram_pngs of one (2, T, F) magnitude tile: each file a
+    PNG whose one IDAT inflates to the tile's clipped 8-bit pixels."""
+    paths = timing.dump_spectrogram_pngs(tile, folder)
+    want = np.clip(np.abs(tile.float().cpu().numpy()) * 10.0, 0, 255).astype(np.uint8)
+    for c, path in enumerate(paths):
+        with open(path, "rb") as f:
+            png = f.read()
+        w, h = struct.unpack(">II", png[16:24])
+        idat = png[33 + 8 : -12 - 4]  # after IHDR and the IDAT length + tag
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+        if (png[:8] != b"\x89PNG\r\n\x1a\n" or (h, w) != want.shape[1:]
+                or rows[:, 0].any() or not np.array_equal(rows[:, 1:], want[c])):
+            raise AssertionError(f"{path}: not the tile's PNG")
+    log(f"[pngs] K1's magnitude tile 0 ({tuple(tile.shape)}, {tile.dtype}) as "
+        f"{len(paths)} valid {want.shape[2]} x {want.shape[1]} PNGs")
+
+
+def server_batch_body() -> bytes:
+    """phase_server's /separate_batch body: three tracks of
+    SERVER_BATCH_SECONDS."""
+    buf = io.BytesIO()
+    np.savez(buf, **{f"t{i}": synthetic_audio(sec, SEED + 10 + i)
+                     for i, sec in enumerate(SERVER_BATCH_SECONDS)})
+    return buf.getvalue()
+
+
+def serve_in_thread(service):
+    """(server, thread, base URL): make_server on port 0, `server.serve` in
+    a thread (which stops the ranks when it ends)."""
+    srv = server.make_server("127.0.0.1", 0, service)
+    thread = threading.Thread(target=server.serve, args=(srv, service),
+                              daemon=True)
+    thread.start()
+    return srv, thread, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def stop_serving(srv, thread) -> None:
+    srv.shutdown()
+    thread.join(timeout=60)
+    srv.server_close()
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+
+
+def post_batch(base: str, body: bytes) -> tuple[dict, float]:
+    t0 = time.perf_counter()
+    code, _, data = http(f"{base}/separate_batch", body)
+    wall = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        raise AssertionError(f"ranked /separate_batch: {code} {data[:200]!r}")
+    out = np.load(io.BytesIO(data))
+    return {k: out[k] for k in out.files}, wall
+
+
+def post_batches(base: str, body: bytes) -> tuple[list[dict], list[float]]:
+    """RANKED_POSTS answers to the same body and the wall time of each: the
+    first call of a path carries its one-time set-up (NCCL's communicator,
+    cuDNN's plans), so the last is the one to compare."""
+    outs, walls = [], []
+    for _ in range(RANKED_POSTS):
+        out, wall = post_batch(base, body)
+        outs.append(out)
+        walls.append(wall)
+    return outs, walls
+
+
+def single_process_posts(cfg, stacked, body: bytes, device):
+    """post_batches against a single-process service (no mesh) on `device`."""
+    service = server.SeparationService(cfg, {"stacked_params": stacked},
+                                       device=device)
+    srv, thread, base = serve_in_thread(service)
+    try:
+        return post_batches(base, body)
+    finally:
+        stop_serving(srv, thread)
+
+
+def walls_text(walls: list[float]) -> str:
+    return " / ".join(f"{w:.3f}" for w in walls) + " ms"
+
+
+def phase_ranked_world1(device, smi: str) -> None:
+    """/separate_batch through the ranked path at world 1 (an NCCL group of
+    one rank) against a single-process server: bit for bit (fp32,
+    deterministic cuDNN in both), one 4-stem run's launches a request."""
+    cfg = vst_config(torch.float32)
+    body = server_batch_body()
+    with distributed.process_group(device.type) as dev, cudnn_deterministic(True):
+        backend = dist.get_backend()
+        stacked = random_stacked(dev)
+        solo, solo_walls = single_process_posts(cfg, stacked, body, dev)
+        service = server.SeparationService(cfg, {"stacked_params": stacked},
+                                           device=dev, mesh=pmesh.make_mesh(1))
+        srv, thread, base = serve_in_thread(service)
+        try:
+            health = json.loads(http(f"{base}/healthz")[2])
+            kernels.reset_launch_counts()
+            got, walls = post_batches(base, body)
+            launches = kernels.launch_counts()
+        finally:
+            stop_serving(srv, thread)
+    d = max(float(np.abs(g[k] - o[k]).max()) for g, o in zip(got, solo) for k in o)
+    log(f"[ranked world 1] /separate_batch {len(SERVER_BATCH_SECONDS)} tracks of "
+        f"{SERVER_BATCH_SECONDS} s, 4 stems fp32, backend {backend}, "
+        f"{RANKED_POSTS} requests: {diff_text(d)} with the single-process "
+        f"server; launches {launches}; /healthz {health}; wall (POST to "
+        f"answer) {walls_text(walls)} beside {walls_text(solo_walls)} "
+        f"single-process ({smi})")
+    if (any(set(g) != set(solo[0]) for g in got) or d != 0.0
+            or health["devices"] != 1
+            or launches != expected_launches(MAIN_PATH_LAUNCHES, RANKED_POSTS)):
+        raise AssertionError("ranked /separate_batch at world 1")
+
+
+def service_rank(rank: int, kind: str, store: str, out, ctl) -> None:
+    """One of RANKED_RANKS ranks sharing the card over gloo: rank 0 serves
+    an fp32, then a bf16 4-stem service on port 0 and stops each when the
+    parent says so; the other rank runs serve_rank_loop for each."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = distributed.initialize(
+            kind, backend="gloo", world_size=RANKED_RANKS, rank=rank,
+            local_rank=0, store=dist.FileStore(store, RANKED_RANKS),
+            timeout=datetime.timedelta(seconds=120))
+        mesh = pmesh.make_mesh(1)
+        stacked = random_stacked(dev)
+        batches = []
+        for dtype in (torch.float32, torch.bfloat16):
+            service = server.SeparationService(
+                vst_config(dtype), {"stacked_params": stacked}, device=dev,
+                mesh=mesh)
+            if rank:
+                batches.append(server.serve_rank_loop(service))
+                continue
+            srv, thread, base = serve_in_thread(service)
+            out.put(("serving", rank, str(dtype), base))
+            try:
+                ctl.get(timeout=RANKED_DEADLINE_S)
+            finally:
+                stop_serving(srv, thread)
+        out.put(("done", rank, None, batches))
+    except BaseException:  # reported to the parent, which fails the run
+        out.put(("done", rank, traceback.format_exc(), None))
+    finally:
+        distributed.shutdown()
+
+
+def phase_ranked_two_ranks(device, smi: str) -> None:
+    """RANKED_RANKS spawned ranks on the card over gloo (service_rank); the
+    parent posts the batch to rank 0: fp32 within 1e-5 of each stem's peak
+    of the single-process answer, bf16 >= RANKED_BF16_MIN_DB against it;
+    after the stop op code both ranks exit 0. A rank that fails or misses
+    the deadline fails the run."""
+    body = server_batch_body()
+    stacked = random_stacked(device)
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    out, ctl = ctx.Queue(), ctx.Queue()
+    deadline = time.monotonic() + RANKED_DEADLINE_S
+
+    def next_message():
+        try:
+            msg = out.get(timeout=max(0.1, deadline - time.monotonic()))
+        except queue.Empty:
+            raise AssertionError(f"service ranks: no message within "
+                                 f"{RANKED_DEADLINE_S} s") from None
+        if msg[0] == "done" and msg[2] is not None:
+            raise AssertionError(f"service rank {msg[1]} failed:\n{msg[2]}")
+        return msg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=service_rank, daemon=True,
+                             args=(r, device.type, os.path.join(tmp, "store"),
+                                   out, ctl))
+                 for r in range(RANKED_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            for dtype in (torch.float32, torch.bfloat16):
+                cfg = vst_config(dtype)
+                solo, solo_walls = single_process_posts(cfg, stacked, body, device)
+                kind, _, label, base = next_message()
+                if kind != "serving" or label != str(dtype):
+                    raise AssertionError(f"unexpected message {kind} {label}")
+                got, walls = post_batches(base, body)
+                ctl.put("stop")
+                if any(set(g) != set(solo[-1]) for g in got):
+                    raise AssertionError(f"ranked {dtype}: keys {sorted(got[0])}")
+                if dtype == torch.float32:
+                    rel = max(float(np.abs(g[k] - solo[-1][k]).max()
+                                    / np.abs(solo[-1][k]).max())
+                              for g in got for k in g)
+                    verdict = (f"largest difference {rel:.3e} of the stem's peak "
+                               f"(<= {MESH_REL_BOUND})")
+                    ok = rel <= MESH_REL_BOUND
+                else:
+                    worst = min(snr_db(g[k], solo[-1][k]) for g in got for k in g)
+                    verdict = (f"per-stem SNR >= {worst:.2f} dB "
+                               f"(>= {RANKED_BF16_MIN_DB})")
+                    ok = worst >= RANKED_BF16_MIN_DB
+                log(f"[ranked two ranks] /separate_batch {dtype}, 4 stems, "
+                    f"{len(SERVER_BATCH_SECONDS)} tracks over {RANKED_RANKS} ranks "
+                    f"sharing the card (gloo), {RANKED_POSTS} requests: {verdict} "
+                    f"against the single-process server; wall (POST to answer) "
+                    f"{walls_text(walls)} beside {walls_text(solo_walls)} "
+                    f"single-process (two processes on one card, not a scaling "
+                    f"number; {smi})")
+                if not ok:
+                    raise AssertionError(f"ranked /separate_batch {dtype}")
+            done = dict((msg[1], msg[3]) for msg in
+                        (next_message() for _ in procs))
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    codes = [p.exitcode for p in procs]
+    log(f"[ranked two ranks] rank 1 ran {done.get(1)} batches (fp32, bf16) and "
+        f"left its loops on the stop op code; exit codes {codes}")
+    if codes != [0] * RANKED_RANKS or done.get(1) != [RANKED_POSTS] * 2:
+        raise AssertionError(f"service ranks: exit codes {codes}, {done}")
+
+
+def phase_host(workdir: str, device, smi: str) -> None:
+    """The host modules and the ranked service."""
+    t0 = time.perf_counter()
+    phase_native(smi)
+    phase_mp3(workdir, device)
+    phase_stage_timing(workdir, device, smi)
+    phase_ranked_world1(device, smi)
+    phase_ranked_two_ranks(device, smi)
+    log(f"[host] phase done in {time.perf_counter() - t0:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2532,6 +2942,8 @@ def main() -> int:
     phase_batch_timing(device)
     phase_train(device, smi)
     phase_mesh(device, smi)
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_host(workdir, device, smi)
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
     # 2-stem CLI's round-3 route for K10.

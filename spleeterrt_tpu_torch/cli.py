@@ -38,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="spleeterrt-tpu-torch",
         description="Spleeter source separation in PyTorch (offline CLI).",
     )
-    p.add_argument("audio", help="input audio file (WAV)")
+    p.add_argument("audio", help="input audio file (WAV, FLAC; MP3 via "
+                                 "libmpg123, soundfile or ffmpeg)")
     p.add_argument("--stems", type=int, default=2, choices=(2, 3, 4, 5))
     p.add_argument("--time-step", type=int, default=512,
                    help="spectrogram tile height in frames (default 512)")
@@ -141,6 +142,7 @@ def main(argv=None) -> int:
     from spleeterrt_tpu_torch.config import SeparatorConfig
     from spleeterrt_tpu_torch.core import separate
     from spleeterrt_tpu_torch.io import audio as audio_io, resample
+    from spleeterrt_tpu_torch.utils.timing import profiler_trace
 
     # Fail fast on undecodable input before any device or weight work.
     if not os.path.exists(args.audio):
@@ -160,7 +162,10 @@ def main(argv=None) -> int:
     print(f"spleeterrt-tpu-torch: device {device} ({name})")
 
     t0 = time.perf_counter()
-    data = audio_io.load_audio(args.audio)
+    try:
+        data = audio_io.load_audio(args.audio)
+    except audio_io.UnsupportedFormatError as e:
+        raise SystemExit(str(e))
     samples = data.samples
     if data.sample_rate != 44100:
         samples = resample.resample(samples, data.sample_rate, 44100)
@@ -174,21 +179,11 @@ def main(argv=None) -> int:
     nets = load_weights(args.weights, args.random_weights, args.seed, cfg,
                         device)
 
-    prof = None
-    if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-    t0 = time.perf_counter()
-    stems = separate.separate(samples, cfg=cfg, device=device, **nets)
-    stems = {k: v.cpu().numpy() for k, v in stems.items()}
-    dt = time.perf_counter() - t0
-    if prof is not None:
-        prof.stop()
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    with profiler_trace(args.profile):
+        t0 = time.perf_counter()
+        stems = separate.separate(samples, cfg=cfg, device=device, **nets)
+        stems = {k: v.cpu().numpy() for k, v in stems.items()}
+        dt = time.perf_counter() - t0
     rtf = samples.shape[1] / 44100.0 / dt
     print(f"Separation ({cfg.num_stems} stems): {dt:.3f} s "
           f"({rtf:.1f}x real time, includes the kernel build on first use)")

@@ -76,7 +76,10 @@ def _chunks(args):
             x = np.frombuffer(raw, dtype="<f4")
             n = x.size // 2
             yield np.ascontiguousarray(x[: n * 2].reshape(n, 2).T)
-    data = audio_io.load_audio(args.input)
+    try:
+        data = audio_io.load_audio(args.input)
+    except audio_io.UnsupportedFormatError as e:
+        raise SystemExit(str(e))
     samples = data.samples
     if data.sample_rate != 44100:
         samples = resample.resample(samples, data.sample_rate, 44100)

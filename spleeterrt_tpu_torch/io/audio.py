@@ -1,23 +1,28 @@
-"""Audio file I/O: a from-scratch RIFF/WAVE codec in NumPy, and FLAC.
+"""Audio file I/O: a from-scratch RIFF/WAVE codec in NumPy, FLAC and MP3.
 
 Reads PCM 8/16/24/32, IEEE float32/64 and WAVE_FORMAT_EXTENSIBLE; writes
 float32 (the reference's stem format, Executable/main.c:812-843).
 `WavReader` opens a WAV header-only and decodes frame ranges (the training
-dataset's streaming reads). FLAC decodes through io/flac.py. MP3 is not
-decoded by this package yet (see ROADMAP.md): it raises
-:class:`UnsupportedFormatError` before any device or weight work.
+dataset's streaming reads). FLAC decodes through io/flac.py (the native
+C++ decoder first, when it builds). MP3 decodes through the system's
+libmpg123 (io/mpg123.py), with soundfile and ffmpeg as further fallbacks,
+in the reference package's order (spleeterrt_tpu/io/audio.py); other
+formats go to soundfile, then ffmpeg. A format no available decoder takes
+raises :class:`UnsupportedFormatError` before any device or weight work.
 """
 
 from __future__ import annotations
 
 import io
 import os
+import shutil
 import struct
+import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 
-from spleeterrt_tpu_torch.io import flac
+from spleeterrt_tpu_torch.io import flac, mpg123
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -31,20 +36,38 @@ class AudioData:
 
 
 class UnsupportedFormatError(ValueError):
-    """Input format this package cannot decode. Raised before any device
-    or weight work so the CLI fails fast with an actionable message."""
+    """Input format no available decoder can handle (e.g. MP3 without
+    libmpg123, soundfile or ffmpeg). Raised before any device or weight
+    work so the CLI fails fast with an actionable message."""
 
 
 def check_decodable(path: str | os.PathLike) -> None:
-    """Fail fast unless `path` is a WAV or FLAC file."""
+    """Fail fast if `path`'s format has no available decoder.
+
+    WAV and FLAC decode in this package. MP3 -- which the reference
+    decodes via its vendored dr_mp3.h (Executable/main.c:241-245) --
+    decodes through the system's libmpg123 (io/mpg123.py), with
+    soundfile/ffmpeg as further fallbacks.
+    """
     ext = os.path.splitext(str(path))[1].lower()
     if ext in (".wav", ".flac"):
         return
+    if ext == ".mp3" and mpg123.available():
+        return
+    try:
+        import soundfile  # noqa: F401  (optional; not in the base image)
+
+        return
+    except ImportError:
+        pass
+    if shutil.which("ffmpeg") and shutil.which("ffprobe"):
+        return
     raise UnsupportedFormatError(
-        f"cannot decode {path}: this package reads WAV and FLAC only so far "
-        f"({ext or 'unknown'} decoding is still to be ported, see "
-        f"ROADMAP.md). Convert to WAV first, e.g. `ffmpeg -i {path} "
-        f"track.wav`."
+        f"cannot decode {path}: {ext or 'unknown'} input requires the "
+        f"'soundfile' package or an 'ffmpeg' binary, and neither is "
+        f"installed. Convert to WAV or FLAC first (e.g. "
+        f"`ffmpeg -i {path} track.wav` on a machine that has ffmpeg), or "
+        f"`pip install soundfile`."
     )
 
 
@@ -232,12 +255,81 @@ def write_wav(
         f.write(hdr + payload)
 
 
+def _read_via_soundfile(path) -> AudioData | None:
+    try:
+        import soundfile  # optional; not in the base image
+    except ImportError:
+        return None
+    data, rate = soundfile.read(path, dtype="float32", always_2d=True)
+    return AudioData(np.ascontiguousarray(data.T), rate)
+
+
+def _read_via_ffmpeg(path) -> AudioData | None:
+    ffprobe = shutil.which("ffprobe")
+    ffmpeg = shutil.which("ffmpeg")
+    if not ffmpeg or not ffprobe:
+        return None
+    probe = subprocess.run(
+        [ffprobe, "-v", "error", "-select_streams", "a:0", "-show_entries",
+         "stream=channels,sample_rate", "-of", "csv=p=0", str(path)],
+        capture_output=True, text=True,
+    )
+    if probe.returncode != 0:
+        return None
+    rate, channels = (int(v) for v in probe.stdout.strip().split(","))
+    raw = subprocess.run(
+        [ffmpeg, "-v", "error", "-i", str(path), "-f", "f32le", "-"],
+        capture_output=True,
+    )
+    if raw.returncode != 0:
+        return None
+    x = np.frombuffer(raw.stdout, dtype="<f4")
+    n = x.size // channels
+    return AudioData(
+        np.ascontiguousarray(x[: n * channels].reshape(n, channels).T), rate)
+
+
+def _read_via_mpg123(path) -> AudioData | None:
+    if not mpg123.available():
+        return None
+    samples, rate = mpg123.decode_mp3(path)
+    return AudioData(samples, rate)
+
+
 def load_audio(path: str | os.PathLike) -> AudioData:
-    """Decode a WAV or FLAC file; any other format raises
-    UnsupportedFormatError."""
-    check_decodable(path)
-    if os.path.splitext(str(path))[1].lower() == ".flac":
+    """Decode WAV/FLAC in this package; MP3 via libmpg123, with
+    soundfile/ffmpeg as further fallbacks; any other format via soundfile,
+    then ffmpeg. Mirrors the reference's loadAudioFile format surface
+    (Executable/main.c:230-276, vendored dr_wav/dr_flac/dr_mp3).
+
+    A reader that errors (corrupt stream, library quirk) falls through to
+    the next one; when every reader has failed or declined, the error is
+    an :class:`UnsupportedFormatError` carrying actionable guidance, like
+    the reference's fail-with-message path (Executable/main.c:246-250).
+    """
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext == ".wav":
+        return read_wav(path)
+    if ext == ".flac":
         with open(path, "rb") as f:
             samples, rate = flac.decode_flac(f.read())
         return AudioData(samples, rate)
-    return read_wav(path)
+    check_decodable(path)  # raises UnsupportedFormatError with guidance
+    readers = (_read_via_soundfile, _read_via_ffmpeg)
+    if ext == ".mp3":
+        readers = (_read_via_mpg123, _read_via_soundfile, _read_via_ffmpeg)
+    errors = []
+    for reader in readers:
+        try:
+            out = reader(path)
+        except Exception as e:  # corrupt input: try the next decoder
+            errors.append(f"{reader.__name__.removeprefix('_read_via_')}: {e}")
+            continue
+        if out is not None:
+            return out
+    detail = ("; ".join(errors)) or "no decoder accepted the file"
+    raise UnsupportedFormatError(
+        f"decoding {path} failed ({detail}). The file may be corrupt; "
+        f"re-encode it, or convert to WAV or FLAC first (e.g. "
+        f"`ffmpeg -i {path} track.wav`), or `pip install soundfile`."
+    )

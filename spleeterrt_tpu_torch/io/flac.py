@@ -286,10 +286,27 @@ def _decode_predicted(
     return out
 
 
-def decode_flac(data: bytes) -> tuple[np.ndarray, int]:
-    """FLAC bytes -> (float32 planar (channels, n), sample_rate)."""
+def decode_flac(
+    data: bytes, prefer_native: bool = True
+) -> tuple[np.ndarray, int]:
+    """FLAC bytes -> (float32 planar (channels, n), sample_rate).
+
+    Uses the C++ decoder (spleeterrt_tpu_torch/native/flacdec.cpp) when it
+    builds; the Python path below is the reference implementation and the
+    parity oracle, and the fallback where the native one is unavailable or
+    refuses the stream.
+    """
     if data[:4] != b"fLaC":
         raise ValueError("not a FLAC stream")
+    if prefer_native:
+        from spleeterrt_tpu_torch import native
+
+        try:
+            out = native.decode_flac_native(data)
+        except (OSError, ValueError):
+            out = None  # fall back to the Python decoder
+        if out is not None:
+            return out
     pos = 4
     info = None
     while True:

@@ -107,6 +107,12 @@ def initialize(
     return dev
 
 
+def launched() -> bool:
+    """Whether a launcher (torchrun) started this process as one rank of a
+    group: its environment names the world size."""
+    return "WORLD_SIZE" in os.environ
+
+
 def shutdown() -> None:
     """Tear the default process group down (a no-op if none is up)."""
     global _rank_device
@@ -171,6 +177,17 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim)
     return out.to(t.device) if host else out
+
+
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> None:
+    """Fill `t` on every rank of `group` with global rank `src`'s `t`, in
+    place (equal shapes and dtypes on every rank)."""
+    if not _via_host(t, group):
+        dist.broadcast(t, src, group=group)
+        return
+    buf = t.cpu()
+    dist.broadcast(buf, src, group=group)
+    t.copy_(buf)
 
 
 def all_reduce_(tensors: list[torch.Tensor], group) -> None:

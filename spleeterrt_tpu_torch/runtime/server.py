@@ -8,7 +8,8 @@ encodes audio.
 
 Endpoints:
 - GET  /healthz            -> {"status": "ok", "devices": N}, N the
-                              devices of the service's device type
+                              devices of the service's device type, or
+                              the ranks' cards under torchrun
 - POST /separate           -> WAV body in; multichannel WAV out
                               (stem-major channel pairs, fs 44100, the
                               order in the X-Stem-Order header)
@@ -22,13 +23,28 @@ Endpoints:
                               pass, one K7 at hop 1024), then cropped back
                               to their lengths. 4- and 5-stem servers only.
 
+Over ranks: started by torchrun (`torchrun --nproc-per-node N -m
+spleeterrt_tpu_torch.runtime.server ...`), every rank brings up the
+process group (parallel/distributed.py), binds its card and builds the same
+service with the same weights; rank 0 alone binds the HTTP port. For each
+/separate_batch, rank 0 broadcasts a header (an op code and the padded
+batch's shape), then the padded tracks, and every rank runs
+`parallel.mesh.separate_batch_sharded` on its share of the tracks (the
+reference package's `separate_batch_sharded` dispatch over its local
+devices); rank 0 crops the result and answers. The other ranks wait in
+`serve_rank_loop`; when rank 0 stops serving it broadcasts the stop op
+code and every rank leaves the group. /separate stays on rank 0. A request
+refused with 400 starts no collective, and the lock orders dispatches, so
+every rank sees the collectives in the same order.
+
 Failure contract: malformed input (bad codec bytes, bad params, wrong
 shapes) -> 400; oversized body -> 413; unknown path -> 404; internal
 faults -> 500 with a generic message (the trace goes to the server's log,
 not the client).
 
 Run: python -m spleeterrt_tpu_torch.runtime.server --port 8080 --random-weights
-(add --device cpu to serve from the kernels' plain versions on the CPU).
+(add --device cpu to serve from the kernels' plain versions on the CPU);
+under torchrun as above to spread /separate_batch over N cards.
 """
 
 from __future__ import annotations
@@ -49,12 +65,19 @@ import torch
 
 from spleeterrt_tpu_torch.core import separate, transform
 from spleeterrt_tpu_torch.io import audio as audio_io, resample
+from spleeterrt_tpu_torch.parallel import distributed
+from spleeterrt_tpu_torch.parallel import mesh as pmesh
 
 # Errors attributable to the request body or params (-> HTTP 400): the
 # reference package's, plus a batch body that is not a zip archive, which
 # it answers with 500. Everything else is an internal fault (-> HTTP 500).
 CLIENT_ERRORS = (ValueError, KeyError, EOFError, struct.error, _zlib_error,
                  zipfile.BadZipFile)
+
+
+# The ranked /separate_batch's op codes, the first word of the header rank
+# 0 broadcasts: [op, B, 2, n] for a batch of B padded (2, n) tracks.
+OP_STOP, OP_BATCH = 0, 1
 
 
 def device_count(device: torch.device) -> int:
@@ -67,15 +90,28 @@ def device_count(device: torch.device) -> int:
 class SeparationService:
     """Holds the nets, the config and the device; separation is serialised
     by a lock, because the kernels' launch-count registry and the device's
-    one stream are shared by every request."""
+    one stream are shared by every request, and so that every rank sees
+    the ranked batches' collectives in one order.
+
+    `mesh`, a (stem, data) mesh over every rank of the process group
+    (`parallel.mesh.make_mesh(1)`), makes /separate_batch a collective
+    over the ranks; without it the service runs on its one device."""
 
     def __init__(self, cfg, weight_kwargs: dict, max_body_bytes: int = 1 << 28,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         self.cfg = cfg
         self.weight_kwargs = weight_kwargs
         self.max_body_bytes = max_body_bytes
         self.device = torch.device(device)
+        self.mesh = mesh
         self._lock = threading.Lock()
+
+    def devices(self) -> int:
+        """/healthz's device count: the ranks' cards, or this host's
+        devices of the service's type."""
+        if self.mesh is not None:
+            return self.mesh.size()
+        return device_count(self.device)
 
     def separate_wav(self, wav_bytes: bytes, num_stems: int | None = None):
         """One WAV -> {stem: (2, n) float32} through `separate.separate`."""
@@ -94,16 +130,36 @@ class SeparationService:
                                       **self.weight_kwargs)
             return {k: v.cpu().numpy() for k, v in stems.items()}
 
-    def separate_batch(self, npz_bytes: bytes) -> dict[str, np.ndarray]:
-        """All tracks of an NPZ body as one batch -> {"{track}/{stem}": (2,
-        n_track) float32}. Only the stacked N-stem graphs (4/5 stems) have
-        a batch endpoint, as in the reference package."""
+    def _stacked(self):
         stacked = self.weight_kwargs.get("stacked_params")
         if stacked is None:
             raise ValueError(
                 f"batch endpoint requires a 4/5-stem server (got "
                 f"{self.cfg.num_stems}-stem weights)"
             )
+        return stacked
+
+    def _batch(self, padded: torch.Tensor) -> torch.Tensor:
+        """(B, S, 2, out_len) stems of the padded tracks: one batch dispatch
+        on this device, or under a mesh the sharded batch over every rank,
+        after the header and the tracks went out to the other ranks."""
+        stacked, cfg = self._stacked(), self.cfg
+        if self.mesh is None:
+            out_band = (separate.OUT_BAND_4 if cfg.num_stems == 4
+                        else separate.OUT_BAND_5)
+            return separate.separate_nstem_batch(stacked, padded, cfg, out_band)
+        header = torch.tensor([OP_BATCH, *padded.shape], dtype=torch.int64,
+                              device=self.device)
+        distributed.broadcast_(header, 0)
+        distributed.broadcast_(padded, 0)
+        return pmesh.separate_batch_sharded(stacked, padded, cfg, self.mesh)
+
+    def separate_batch(self, npz_bytes: bytes) -> dict[str, np.ndarray]:
+        """All tracks of an NPZ body as one batch -> {"{track}/{stem}": (2,
+        n_track) float32}. Only the stacked N-stem graphs (4/5 stems) have
+        a batch endpoint, as in the reference package. The body is checked
+        before any collective starts."""
+        self._stacked()
         with np.load(io.BytesIO(npz_bytes), allow_pickle=False) as z:
             names = list(z.files)
             if not names:
@@ -127,12 +183,11 @@ class SeparationService:
         )
         cfg = self.cfg
         preshift, _ = transform.offline_pad_sizes(n_max, cfg.transform)
-        out_band = separate.OUT_BAND_4 if cfg.num_stems == 4 else separate.OUT_BAND_5
         with self._lock:
             padded = transform.pad_offline(
                 torch.from_numpy(batch).to(self.device), cfg.transform
             ).contiguous()
-            out = separate.separate_nstem_batch(stacked, padded, cfg, out_band)
+            out = self._batch(padded)
             result = {
                 f"{name}/{stem}": out[i, s, :, preshift : preshift + lengths[name]]
                 .cpu().numpy()
@@ -140,6 +195,44 @@ class SeparationService:
                 for s, stem in enumerate(cfg.stem_names)
             }
         return result
+
+    def stop_ranks(self) -> None:
+        """Rank 0: send the other ranks the stop op code (a no-op without a
+        mesh)."""
+        if self.mesh is None:
+            return
+        with self._lock:
+            distributed.broadcast_(torch.tensor(
+                [OP_STOP, 0, 0, 0], dtype=torch.int64, device=self.device), 0)
+
+
+def serve_rank_loop(service: SeparationService) -> int:
+    """A rank other than 0: run each batch rank 0 broadcasts through
+    `parallel.mesh.separate_batch_sharded` with the service's nets, until
+    the stop op code; returns the number of batches run."""
+    stacked, dev = service._stacked(), service.device
+    batches = 0
+    while True:
+        header = torch.empty(4, dtype=torch.int64, device=dev)
+        distributed.broadcast_(header, 0)
+        op, *shape = header.tolist()
+        if op == OP_STOP:
+            return batches
+        if op != OP_BATCH:
+            raise RuntimeError(f"unknown op code {op} from rank 0")
+        tracks = torch.empty(shape, dtype=torch.float32, device=dev)
+        distributed.broadcast_(tracks, 0)
+        pmesh.separate_batch_sharded(stacked, tracks, service.cfg, service.mesh)
+        batches += 1
+
+
+def serve(srv, service: SeparationService) -> None:
+    """Rank 0 (or the one process): serve until `serve_forever` ends (by
+    `srv.shutdown()` or an interrupt), then stop the other ranks."""
+    try:
+        srv.serve_forever()
+    finally:
+        service.stop_ranks()
 
 
 def _make_handler(service: SeparationService):
@@ -159,7 +252,7 @@ def _make_handler(service: SeparationService):
         def do_GET(self):
             if self.path.startswith("/healthz"):
                 body = json.dumps({"status": "ok",
-                                   "devices": device_count(service.device)})
+                                   "devices": service.devices()})
                 self._send(200, body.encode(), "application/json")
             else:
                 self._send(404, b"not found", "text/plain")
@@ -274,14 +367,25 @@ def main(argv=None) -> int:
         compute_dtype=torch.bfloat16,
     )
     device = cli.open_device(args.device)
-    weight_kwargs = cli.load_weights(args.weights, args.random_weights,
-                                     args.seed, cfg, device)
-    service = SeparationService(cfg, weight_kwargs,
-                                max_body_bytes=args.max_body_mb << 20,
-                                device=device)
-    srv = make_server(args.host, args.port, service)
-    print(f"serving on http://{args.host}:{srv.server_address[1]} ({device})")
-    srv.serve_forever()
+    ranked = distributed.launched()
+    if ranked:
+        device = distributed.initialize(device.type)
+    try:
+        weight_kwargs = cli.load_weights(args.weights, args.random_weights,
+                                         args.seed, cfg, device)
+        service = SeparationService(
+            cfg, weight_kwargs, max_body_bytes=args.max_body_mb << 20,
+            device=device, mesh=pmesh.make_mesh(1) if ranked else None)
+        if not distributed.is_coordinator():
+            serve_rank_loop(service)
+            return 0
+        srv = make_server(args.host, args.port, service)
+        print(f"serving on http://{args.host}:{srv.server_address[1]} ({device}"
+              + (f", {service.devices()} ranks" if ranked else "") + ")")
+        serve(srv, service)
+    finally:
+        if ranked:
+            distributed.shutdown()
     return 0
 
 

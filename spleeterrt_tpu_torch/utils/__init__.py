@@ -1,0 +1,1 @@
+from spleeterrt_tpu_torch.utils import timing  # noqa: F401

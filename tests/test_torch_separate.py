@@ -245,6 +245,8 @@ def test_package_never_imports_jax():
         "import spleeterrt_tpu_torch.runtime.executor\n"
         "import spleeterrt_tpu_torch.runtime.server\n"
         "import spleeterrt_tpu_torch.io.resample, spleeterrt_tpu_torch.utils.metrics\n"
+        "import spleeterrt_tpu_torch.io.mpg123, spleeterrt_tpu_torch.io.mp3_fixtures\n"
+        "import spleeterrt_tpu_torch.native, spleeterrt_tpu_torch.utils.timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'spleeterrt_tpu' or m.startswith('spleeterrt_tpu.')]\n"
         "assert not bad, bad\n"

@@ -249,8 +249,15 @@ def test_cli_stream_refuses_missing_cuda(tmp_path, monkeypatch):
 
 
 def test_cli_stream_refuses_other_formats(tmp_path):
+    """An MP3 no reader can decode ends the CLI with the JAX package's
+    message, before any output is written."""
     song = tmp_path / "song.mp3"
     song.write_bytes(b"ID3\0\0\0\0")
-    with pytest.raises(SystemExit, match="WAV and FLAC only"):
+    with pytest.raises(SystemExit) as ref:
+        jcli_stream.main([str(song), "--random-weights",
+                          "--output", str(tmp_path / "out")])
+    with pytest.raises(SystemExit) as got:
         cli_stream.main([str(song), "--random-weights", "--device", "cpu",
                          "--output", str(tmp_path / "out")])
+    assert str(got.value) == str(ref.value)
+    assert not (tmp_path / "out").exists()
