@@ -157,6 +157,26 @@ Phases, each of which raises (non-zero exit) on failure:
    within 1e-5 of each stem's peak and bf16 >= 60 dB against the
    single-process service, and both ranks exit 0 after the stop op code.
    A rank that fails or misses its deadline fails the run.
+20. The stem axis: the grouped stages (core/grouped.py, every stem in one
+   grouped cuDNN convolution a layer) beside the per-stem loops, built
+   here from model.stem_params and the single-net functions. Differences
+   under deterministic cuDNN with TF32 off (fp32 within 1e-5 of the loop's
+   peak, bf16 finite and logged); times by CUDA events under cuDNN's own
+   choice, 7 samples a side in turns, best, median and range, and whether
+   grouped is slower or faster beyond the spread. The mid trunk at the
+   4-stem 300 s shape (K2/K3's act4 and skip4, 204 x 16 x 96 x 128) in
+   fp32 and bf16, model.mid_trunk's loop over stems beside the grouped
+   form built here from core/grouped.py's layers (measured slower, so the
+   library keeps the loop), with each side's device kernels split into
+   library convolutions, copies and elementwise passes, the torch ops
+   behind them, the bound, and the grouped form's library convolution
+   kernels at 4 stems beside one stem's; the 4-stem 300 s graph (bf16)
+   with the per-stem mid trunk beside the grouped one patched in, its
+   launches (K1, K2, K3 x3, K4-K7 once) and its profile's idle share; the
+   round-3 trunk (2 stems, exe config, 300 s, 26 images; 4 stems, VST
+   config, 30 s, 24 images) and the canonical route (4 stems, 30 s, 24
+   images) against their loops; the bf16 train step at phase 17's shape
+   through the grouped route beside the loop, and its profile.
 
 Phase 2 also runs K1 and K7 with four 30 s tracks folded into their rows
 (tracks = 4): against their plain versions, twice bit-identical, and each
@@ -181,6 +201,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import datetime
+import functools
 import io
 import json
 import math
@@ -211,6 +232,7 @@ from spleeterrt_tpu_torch.config import (
 )
 from spleeterrt_tpu_torch.core import (
     checkpoint,
+    grouped,
     model,
     separate,
     train,
@@ -351,11 +373,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def plain_separate(stacked, audio: np.ndarray, cfg, device) -> dict:
-    """The 4-stem graph of separate.separate with no hand kernel: the
-    canonical per-stem U-Net (cuDNN convolutions) in place of the packed
-    one and, at hop 1024, K1 and K7 by their plain versions (torch.fft);
-    at any other hop the plain STFT, K9's plain version and the plain
-    overlap-add."""
+    """The 4-stem graph of separate.separate with no hand kernel: each
+    stem's canonical U-Net in turn (per_stem_masks, cuDNN convolutions) in
+    place of the packed one and, at hop 1024, K1 and K7 by their plain
+    versions (torch.fft); at any other hop the plain STFT, K9's plain
+    version and the plain overlap-add."""
     x = torch.as_tensor(audio, dtype=torch.float32, device=device)
     n = x.shape[-1]
     tcfg = cfg.transform
@@ -369,17 +391,15 @@ def plain_separate(stacked, audio: np.ndarray, cfg, device) -> dict:
             padded, transform.analysis_window(4096, device=device), n_comp,
             n_req, cfg.bin_limit, cfg.time_step,
         )
-        masks = model.multi_stem_masks_canonical(
-            stacked, mag, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
-        )
+        masks = per_stem_masks(stacked, mag, STEM_MODE_4, cfg.compute_dtype,
+                               cfg.sigmoid)
         stems = stft_fused.masked_istft4096_plain(spec, masks, ob, swin, n_out)
     else:
         spec = transform.stft(padded, tcfg, padded.shape[-1])
         n_frames = spec.shape[-2]
         tiles = separate.spec_to_tiles(spec, cfg).permute(0, 3, 1, 2).contiguous()
-        masks = model.multi_stem_masks_canonical(
-            stacked, tiles, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
-        )  # (S, n_tiles, 2, T, F)
+        masks = per_stem_masks(stacked, tiles, STEM_MODE_4, cfg.compute_dtype,
+                               cfg.sigmoid)  # (S, n_tiles, 2, T, F)
         masks = masks.transpose(1, 2).flatten(2, 3)[:, :, :n_frames].contiguous()
         frames = pallas_fft.masked_irfft4096_plain(spec, masks, ob,
                                                    cfg.bin_limit, swin)
@@ -1117,7 +1137,7 @@ def phase_timing(device) -> None:
     stages["U-Net x4 stems, packed (K2-K6 + mid trunk)"] = cuda_ms(
         lambda: model.multi_stem_masks(stacked, mag, STEM_MODE_4,
                                        cfg.compute_dtype, cfg.sigmoid), 5, 1)
-    stages["U-Net x4 stems, canonical (cuDNN, per stem)"] = cuda_ms(
+    stages["U-Net x4 stems, canonical (cuDNN, grouped)"] = cuda_ms(
         lambda: model.multi_stem_masks_canonical(
             stacked, mag, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid), 5, 1)
     for name, ms in stages.items():
@@ -1368,7 +1388,8 @@ def stream_stages(stacked, state, block, cfg) -> None:
 def plain_graph():
     """The offline graphs with no hand kernel: every wrapper they call
     replaced by its plain version (torch.fft) and the U-Net sent down its
-    canonical route (cuDNN), as phase 4's plain path is for 4 stems."""
+    canonical route with each stem's net in turn (per_stem_masks, cuDNN),
+    as phase 4's plain path is for 4 stems."""
     patches = [
         (stft_fused, "stft4096", stft_fused.stft4096_plain),
         (stft_fused, "masked_istft4096", stft_fused.masked_istft4096_plain),
@@ -1377,6 +1398,7 @@ def plain_graph():
         (model, "FORCE_PACKED_UNET", False),
         (model, "FORCE_PALLAS_HEAD", False),
         (model, "FORCE_PALLAS_ENCODER", False),
+        (model, "multi_stem_masks_canonical", per_stem_masks),
     ]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     kernels.reset_launch_counts()
@@ -1530,23 +1552,24 @@ def phase_round3(workdir: str, files: dict, device) -> dict:
 
 def check_library_convs_round3(tag, x, params, cfg, device) -> None:
     """The library convolutions of a round-3 2-stem separation are those of
-    trunk_tail (enc4..up5) alone, on inputs of the same shapes and layouts
-    as the K3 outputs it reads, and no more."""
+    the grouped enc4..up5 (grouped.trunk_tail) alone, on inputs of the same
+    shapes and layouts as the K3 outputs it reads, and no more."""
     padded = transform.pad_offline(torch.from_numpy(x).to(device),
                                    cfg.transform).contiguous()
     graph = library_conv_kernels(lambda: separate.separate_2stem(params, padded, cfg))
     _, _, n_req = separate.frame_counts(padded.shape[-1], cfg)
     nt, t, f = n_req // cfg.time_step, cfg.time_step, cfg.bin_limit
-    nchw = lambda c, d: torch.zeros((nt, t // d, f // d, c), dtype=cfg.compute_dtype,
-                                    device=device).permute(0, 3, 1, 2)
-    skips = [nchw(16, 2), nchw(32, 4), nchw(64, 8)]
-    tail_only = library_conv_kernels(lambda: model.trunk_tail(
-        params, nchw(64, 8), skips, STEM_MODE_2, cfg.compute_dtype))
+    front = lambda c, d: grouped.to_grouped(torch.zeros(
+        (nt, t // d, f // d, c), dtype=cfg.compute_dtype, device=device), 1)
+    skips = [front(16, 2), front(32, 4), front(64, 8)]
+    tail_only = library_conv_kernels(lambda: grouped.trunk_tail(
+        model.with_stem_axis(params), front(64, 8), skips, 1, STEM_MODE_2,
+        cfg.compute_dtype))
     log(f"[{tag}] library convolution launches: graph {sum(graph.values())}, "
-        f"trunk_tail (enc4..up5) alone {sum(tail_only.values())}")
+        f"grouped enc4..up5 alone {sum(tail_only.values())}")
     if not tail_only or graph != tail_only:
         raise AssertionError(f"{tag}: library convolutions outside enc4..up5: "
-                             f"graph {dict(graph)}, trunk_tail {dict(tail_only)}")
+                             f"graph {dict(graph)}, enc4..up5 {dict(tail_only)}")
 
 
 def phase_timing_2stem(device) -> None:
@@ -2911,6 +2934,350 @@ def phase_host(workdir: str, device, smi: str) -> None:
     log(f"[host] phase done in {time.perf_counter() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# The stem axis: the grouped stages beside the per-stem loops they replaced
+# ---------------------------------------------------------------------------
+
+# The mid trunk's layers enc5, enc6, up1..up3 as (Cin, Cout, pixels the
+# MACs run over relative to its input's t16 x f16): convs at their output
+# size, transposed convs at their input size.
+MID_TRUNK_LAYERS = ((128, 256, 1 / 4), (256, 512, 1 / 16), (512, 256, 1 / 16),
+                    (512, 128, 1 / 4), (256, 64, 1))
+STEM_AXIS_ROUNDS = 7  # timed samples of each side, in turns
+STEM_AXIS_F32_REL = 1e-5  # grouped vs per-stem, fp32, of the per-stem peak
+
+
+def mid_trunk_work(act4: torch.Tensor, n_stems: int) -> tuple[float, float]:
+    """(operations, bytes) of the mid trunk over act4 (S * B, T/16, F/16,
+    128): 2 x MACs of enc5, enc6, up1..up3; act4, skip4 and up3's output
+    once each, and every stem's weights in the compute dtype."""
+    n, t16, f16, _ = act4.shape
+    macs = sum(n * t16 * f16 * px * cin * cout * 25
+               for cin, cout, px in MID_TRUNK_LAYERS)
+    weights_n = n_stems * sum(cin * cout * 25 for cin, cout, _ in MID_TRUNK_LAYERS)
+    out_n = n * 2 * t16 * 2 * f16 * 64
+    return 2.0 * macs, act4.element_size() * (2 * act4.numel() + out_n + weights_n)
+
+
+def per_stem_masks(stacked, mag, stem_mode=STEM_MODE_4,
+                   compute_dtype=torch.float32, sigmoid="exact"):
+    """Each stem's canonical net, model.unet_forward_nchw, one after the
+    other -> (S, B, 2, T, F): the per-stem formulation, which shares no
+    code with core/grouped.py."""
+    return torch.stack([
+        model.unet_forward_nchw(model.stem_params(stacked, s), mag, stem_mode,
+                                compute_dtype, sigmoid)
+        for s in range(model.num_stems(stacked))
+    ])
+
+
+def grouped_mid_trunk(stacked, act4, skip4, stem_mode, compute_dtype):
+    """The mid trunk on core/grouped.py's layers, every stem in one grouped
+    convolution a layer: the form model.mid_trunk does not take, because
+    this phase measured it slower than the loop over stems it keeps. (S *
+    B, T/16, F/16, 128) NHWC in, up3's output (S * B, T/8, F/8, 64) NHWC
+    out."""
+    s = model.num_stems(stacked)
+    conv5: list[torch.Tensor] = []
+    x = grouped.encoder(stacked, grouped.to_grouped(act4, s), range(5, 7),
+                        conv5, s, stem_mode, compute_dtype)
+    skips = {1: conv5[0], 2: grouped.to_grouped(skip4, s)}
+    for i in range(1, 4):
+        x = grouped.decoder(stacked[f"up{i}"], x, s, stem_mode, compute_dtype)
+        if i < 3:
+            x = grouped.concat_g(skips[i], x, s)
+    return grouped.from_grouped(x, s)
+
+
+def per_stem_trunk(stacked, mag, stem_mode, compute_dtype):
+    """model.multi_stem_trunk's K2/K3-fronted branch with each stem's
+    trunk_tail in turn, the loop the grouped layers replaced -> up6's
+    input (S * B, T/2, F/2, C) NHWC."""
+    n, b = model.num_stems(stacked), mag.shape[0]
+    skips, act3 = model.kernel_encoder(stacked, mag, 3, stem_mode, compute_dtype)
+    fronts = [*skips, act3]
+    out = []
+    for s in range(n):
+        *skips3, x = (a[s * b:(s + 1) * b].permute(0, 3, 1, 2) for a in fronts)
+        y = model.trunk_tail(model.stem_params(stacked, s), x, skips3,
+                             stem_mode, compute_dtype)
+        out.append(y.permute(0, 2, 3, 1))
+    return torch.cat(out)
+
+
+def with_attr(mod, name: str, value, fn):
+    """fn with mod.name set to value for the call."""
+    def run():
+        saved = getattr(mod, name)
+        setattr(mod, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(mod, name, saved)
+    return run
+
+
+def turns_ms(fns: dict, rounds: int = STEM_AXIS_ROUNDS, iters: int = 3
+             ) -> dict[str, list[float]]:
+    """ms a call of each fn by CUDA events (mean of `iters` calls a sample),
+    `rounds` samples each after one warm call, the fns taking turns (a, b,
+    b, a, ...) so clocks and caches treat them alike."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out[name].append(cuda_ms(fns[name], iters=iters, warmup=0))
+    return out
+
+
+def log_turns(tag: str, times: dict[str, list[float]]) -> None:
+    """Best, median and range of each side, and whether the grouped side
+    is slower or faster than the per-stem side beyond both spreads."""
+    for name, ms in times.items():
+        log(f"[stem axis] {tag}, {name}: best {min(ms):.3f}, median "
+            f"{float(np.median(ms)):.3f} ms (range {min(ms):.3f}-{max(ms):.3f}, "
+            f"{len(ms)} samples)")
+    (_, loop), (_, grp) = times.items()
+    if min(grp) > max(loop):
+        verdict = "grouped SLOWER than the per-stem loop beyond the spread"
+    elif max(grp) < min(loop):
+        verdict = (f"grouped faster, {float(np.median(loop)) / float(np.median(grp)):.2f}x "
+                   f"by the medians")
+    else:
+        verdict = "within the spread of repeated calls"
+    log(f"[stem axis] {tag}: {verdict}")
+
+
+def kernel_split(tag: str, fn) -> None:
+    """Device kernels of one fn() (after a warm call) split into library
+    convolutions (cuDNN and its layout helpers), copies (copy, cat, the
+    padding's fill), elementwise passes (other torch kernels) and the rest,
+    logged as launches and ms a class with the largest kernels and the
+    torch ops whose own kernels took the most device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {k: [0, 0.0] for k in ("library convolutions", "copies",
+                                   "elementwise", "other")}
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        low = e.name.lower()
+        if "at::native" in low:
+            cls = ("copies" if any(k in low for k in ("copy", "cat", "fill"))
+                   else "elementwise")
+        elif "memcpy" in low or "memset" in low:
+            cls = "copies"
+        elif "spleeterrt" not in low and any(
+                k in low for k in (*CONV_KEYS, "nhwc", "nchw")):
+            cls = "library convolutions"
+        else:
+            cls = "other"
+        ms = e.device_time_total / 1e3
+        split[cls][0] += 1
+        split[cls][1] += ms
+        by_name[e.name[:90]] += ms
+    if not by_name:
+        raise AssertionError(f"{tag}: the profiler caught no device kernel")
+    log(f"[stem axis] {tag}: " + ", ".join(
+        f"{cls} {n} kernels {ms:.3f} ms" for cls, (n, ms) in split.items()))
+    for name, ms in by_name.most_common(6):
+        log(f"[stem axis]   {ms:9.3f} ms  {name}")
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.key.startswith("aten::") and e.self_device_time_total > 0),
+                 reverse=True)
+    log(f"[stem axis] {tag}, device time by torch op: " + ", ".join(
+        f"{key} x{n} {ms:.3f} ms" for ms, n, key in ops[:10]))
+
+
+def rel_diff(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|, in float32."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max())
+
+
+def held_to_loop(tag: str, grouped_fn, loop_fn, dtype) -> None:
+    """Grouped against the per-stem loop on the same inputs under
+    deterministic cuDNN: fp32 within STEM_AXIS_F32_REL of the loop's peak;
+    bf16 finite, its difference logged."""
+    with cudnn_deterministic(True):
+        got, ref = grouped_fn(), loop_fn()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)} or non-finite")
+    d = rel_diff(got, ref)
+    bound = STEM_AXIS_F32_REL if dtype == torch.float32 else None
+    log(f"[stem axis] {tag}, {str(dtype)[6:]}: grouped vs per-stem loop "
+        f"{d:.3e} of the peak" + (f" (<= {bound})" if bound else ""))
+    if bound is not None and not d <= bound:
+        raise AssertionError(f"{tag}: grouped {d} of the peak from the loop")
+
+
+def offline_mag(cfg, seconds: float, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pre-padded audio, K1's magnitude tiles) of `seconds` of seeded
+    noise at cfg."""
+    rng = np.random.default_rng(SEED)
+    audio = torch.as_tensor(rng.standard_normal((2, int(seconds * SR))) * 0.3,
+                            dtype=torch.float32, device=device)
+    padded = transform.pad_offline(audio, cfg.transform).contiguous()
+    _, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
+    _, mag = stft_fused.stft4096(
+        padded, transform.analysis_window(4096, device=device), n_comp, n_req,
+        cfg.bin_limit, cfg.time_step)
+    return padded, mag
+
+
+def stem_axis_mid_trunk(stacked, mag, smi: str) -> None:
+    """The mid trunk at the 4-stem 300 s shape: the grouped form beside
+    model.mid_trunk's loop over stems: the difference, times, the kernel
+    split and the bound."""
+    for dtype in (torch.float32, torch.bfloat16):
+        skips, act4 = model.kernel_encoder(stacked, mag, 4, STEM_MODE_4, dtype)
+        args = (stacked, act4, skips[3], STEM_MODE_4, dtype)
+        del skips
+        tag = f"mid trunk {tuple(act4.shape)}"
+        held_to_loop(tag, lambda: grouped_mid_trunk(*args),
+                     lambda: model.mid_trunk(*args), dtype)
+        fns = {"per-stem loop (model.mid_trunk)": lambda: model.mid_trunk(*args),
+               "grouped": lambda: grouped_mid_trunk(*args)}
+        log_turns(f"{tag}, {str(dtype)[6:]}", turns_ms(fns))
+        for name, fn in fns.items():
+            kernel_split(f"{tag}, {str(dtype)[6:]}, {name}", fn)
+        ops, nbytes_ = mid_trunk_work(act4, model.num_stems(stacked))
+        by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+        by_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+        log(f"[stem axis] {tag}, {str(dtype)[6:]}: bound "
+            f"{max(by_ops, by_bytes):.4f} ms (by "
+            f"{'operations' if by_ops >= by_bytes else 'bytes'}: "
+            f"{ops / 1e12:.4f} TFLOP, {nbytes_ / 1e6:.1f} MB) ({smi})")
+        # Library convolution kernels of the grouped mid trunk at 4 stems
+        # beside one stem's: cuDNN may run a grouped convolution as one
+        # kernel or as a kernel a group with channel slices around it.
+        if dtype == torch.bfloat16:
+            one = model.with_stem_axis(model.stem_params(stacked, 0))
+            b = act4.shape[0] // model.num_stems(stacked)
+            four = library_conv_kernels(lambda: grouped_mid_trunk(*args))
+            single = library_conv_kernels(lambda: grouped_mid_trunk(
+                one, act4[:b], act4[:b], STEM_MODE_4, dtype))
+            log(f"[stem axis] library convolution kernels: grouped mid trunk "
+                f"of 4 stems {sum(four.values())}, of one stem "
+                f"{sum(single.values())}; 4 stems: " + ", ".join(
+                    f"{n} x {name[:60]}" for name, n in four.most_common(8)))
+        del args, act4
+
+
+def stem_axis_graph(stacked, padded, cfg) -> None:
+    """The 4-stem 300 s offline graph with model.mid_trunk's loop over stems
+    beside the same graph with the grouped mid trunk patched in, its
+    launches and idle share."""
+    run = lambda: separate.separate_4stem(stacked, padded, cfg)
+    kernels.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != expected_launches(MAIN_PATH_LAUNCHES):
+        raise AssertionError(f"4-stem graph launches {launches}")
+    log(f"[stem axis] 300 s 4-stem graph launches {launches}")
+    log_turns("300 s 4-stem separate_4stem, bf16", turns_ms({
+        "per-stem mid trunk (model.mid_trunk)": run,
+        "grouped mid trunk": with_attr(model, "mid_trunk", grouped_mid_trunk,
+                                       run)}))
+    profile_device("one 300 s 4-stem separation, per-stem mid trunk", run)
+
+
+def stem_axis_round3(device) -> None:
+    """The round-3 trunk (K2/K3 fronts, then enc4..up5 grouped) beside the
+    per-stem trunk_tail loop: the 2-stem exe config at 300 s (one net, 26
+    images) and the 4-stem VST config at 30 s (24 images)."""
+    cases = []
+    cfg2 = exe_config(2, torch.bfloat16)
+    params = cli.load_weights(None, True, SEED, cfg2, device)["params"]
+    cases.append(("round-3 trunk, 2 stems exe 300 s",
+                  model.with_stem_axis(params), STEM_MODE_2,
+                  offline_mag(cfg2, BENCH_SECONDS[-1], device)[1]))
+    cfg4 = vst_config(torch.bfloat16)
+    cases.append(("round-3 trunk, 4 stems VST 30 s", random_stacked(device),
+                  STEM_MODE_4, offline_mag(cfg4, SMOKE_SECONDS, device)[1]))
+    for tag, stacked, mode, mag in cases:
+        if not model.use_pallas_encoder(stacked, mag):
+            raise AssertionError(f"{tag}: the round-3 encoder gate is off")
+        tag = f"{tag} ({model.num_stems(stacked) * mag.shape[0]} images)"
+        fns = {dtype: {
+            "per-stem loop": functools.partial(per_stem_trunk, stacked, mag,
+                                               mode, dtype),
+            "grouped": functools.partial(model.multi_stem_trunk, stacked, mag,
+                                         mode, dtype)}
+            for dtype in (torch.float32, torch.bfloat16)}
+        for dtype, pair in fns.items():
+            held_to_loop(tag, pair["grouped"], pair["per-stem loop"], dtype)
+        log_turns(f"{tag}, bfloat16", turns_ms(fns[torch.bfloat16]))
+
+
+def stem_axis_canonical(stacked, device) -> None:
+    """The canonical route at 30 s of the 4-stem VST graph (24 images),
+    grouped beside each stem's unet_forward_nchw."""
+    mag = offline_mag(vst_config(torch.bfloat16), SMOKE_SECONDS, device)[1]
+    tag = f"canonical route, 4 stems VST 30 s ({4 * mag.shape[0]} images)"
+    fns = {dtype: {
+        "per-stem loop": functools.partial(per_stem_masks, stacked, mag,
+                                           STEM_MODE_4, dtype),
+        "grouped": functools.partial(model.multi_stem_masks_canonical, stacked,
+                                     mag, STEM_MODE_4, dtype)}
+        for dtype in (torch.float32, torch.bfloat16)}
+    for dtype, pair in fns.items():
+        held_to_loop(tag, pair["grouped"], pair["per-stem loop"], dtype)
+    log_turns(f"{tag}, bfloat16", turns_ms(fns[torch.bfloat16]))
+
+
+def stem_axis_train(device, smi: str) -> None:
+    """The bf16 train step at phase 17's shape on a seeded batch, through
+    the grouped canonical route beside the per-stem loop (patched in for
+    the call), and a profile of one grouped step."""
+    cfg = train_config(torch.bfloat16)
+    state = train.init_train_state(training_nets(SEED, device), TRAIN_LR, ema=True)
+    step = train.make_train_step(STEM_MODE_4, cfg.compute_dtype, TRAIN_EMA)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    s, b, t, f = len(TRAIN_STEMS), TRAIN_BATCH, cfg.time_step, cfg.bin_limit
+    mix = torch.rand((b, t, f, 2), generator=gen, device=device)
+    tgt = torch.rand((s, b, t, f, 2), generator=gen, device=device) * mix
+    active = torch.ones((s, b), device=device)
+    run = lambda: step(state, mix, tgt, active)
+    times = turns_ms({"per-stem loop": with_attr(
+        model, "multi_stem_masks_canonical", per_stem_masks, run),
+        "grouped": run})
+    log_turns(f"bf16 train step, {s} stems x {b} x {t} x {f}", times)
+    profile_device("one bf16 train step, grouped canonical route", run)
+    loss = float(run()[1])
+    if not math.isfinite(loss):
+        raise AssertionError(f"train step loss {loss}")
+    log(f"[stem axis] train step loss finite ({loss:.5f}) ({smi})")
+
+
+def phase_stem_axis(device, smi: str) -> None:
+    """Phase 20: the grouped stages (core/grouped.py) beside the per-stem
+    loops they replaced."""
+    t0 = time.perf_counter()
+    cfg = vst_config(torch.bfloat16)
+    stacked = random_stacked(device)
+    padded, mag = offline_mag(cfg, BENCH_SECONDS[-1], device)
+    stem_axis_mid_trunk(stacked, mag, smi)
+    del mag
+    stem_axis_graph(stacked, padded, cfg)
+    del padded
+    stem_axis_round3(device)
+    stem_axis_canonical(stacked, device)
+    stem_axis_train(device, smi)
+    log(f"[stem axis] phase done in {time.perf_counter() - t0:.3f} s; {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2944,6 +3311,7 @@ def main() -> int:
     phase_mesh(device, smi)
     with tempfile.TemporaryDirectory() as workdir:
         phase_host(workdir, device, smi)
+    phase_stem_axis(device, smi)
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
     # 2-stem CLI's round-3 route for K10.

@@ -29,16 +29,25 @@ Three routes, tried in the reference package's order
 (spleeterrt_tpu/core/model.py::multi_stem_forward):
 
 1. the packed U-Net (`packed_unet_masks`: the hand kernels K2-K6 of
-   kernels/encoder.py and kernels/tail.py around a plain-torch mid trunk)
+   kernels/encoder.py and kernels/tail.py around a plain-torch mid trunk,
+   enc5..up3)
    wherever `use_packed_unet` holds: the standard architecture at tile
    shapes the kernels take, with the exact sigmoid;
 2. the round-3 route wherever `use_pallas_head` or `use_pallas_encoder`
    holds: K2 enc1 and K3 enc2, enc3 (`multi_stem_trunk`), enc4..up5 in
-   plain torch (`trunk_tail`, any channel ladder), and the head K10
-   (`pallas_head`, kernels/mask_head.py) or the canonical head. A net
-   whose deep trunk is not the standard one, or the standard net with
-   FORCE_PACKED_UNET = False, goes this way;
-3. the canonical per-stem `unet_forward_nchw`.
+   plain torch (any channel ladder), and the head K10 (`pallas_head`,
+   kernels/mask_head.py) or the canonical head. A net whose deep trunk is
+   not the standard one, or the standard net with FORCE_PACKED_UNET =
+   False, goes this way;
+3. the canonical route, every layer in plain torch
+   (`multi_stem_masks_canonical`).
+
+Where the reference vmaps the stem axis, the port runs every stem in one
+grouped convolution a layer (core/grouped.py) in the round-3 trunk and
+head and the canonical route; the mid trunk keeps its loop over stems,
+which an H100 ran faster (`mid_trunk`). The single-net functions
+(`unet_forward_nchw`, `unet_trunk`, `trunk_tail`, `canonical_head`) stay
+the per-stem formulation.
 
 The gates look at shapes only, not at the device: on CPU tensors a route
 runs the kernels' plain versions, on CUDA tensors the kernels. The
@@ -385,9 +394,15 @@ def mid_trunk(
     compute_dtype,
 ) -> torch.Tensor:
     """enc5 + enc6 + up1..up3 in plain torch convolutions, the reference's
-    `_mid_trunk_xla`, stem s's weights on images [s*B, (s+1)*B). Returns
-    up3's output (S * B, T/8, F/8, 64) NHWC, before the skip3 concat (the
-    up4 kernel takes that concat as split-K)."""
+    `vmap(_mid_trunk_xla)`, stem s's weights on images [s*B, (s+1)*B).
+    Returns up3's output (S * B, T/8, F/8, 64) NHWC, before the skip3
+    concat (the up4 kernel takes that concat as split-K).
+
+    The stems run one after the other. The grouped form (core/grouped.py's
+    layers, one grouped convolution a layer) made the 4-stem 300 s graph
+    slower on an H100 beyond the spread of repeated calls: cuDNN runs each
+    grouped convolution at these widths as a convolution a group with
+    channel-slice copies around them (chip_smoke.py phase 20, PERF.md)."""
     cast = lambda a: a.to(compute_dtype)
     n_stems = num_stems(stacked_params)
     b = act4.shape[0] // n_stems
@@ -477,29 +492,22 @@ def multi_stem_trunk(
     compute dtype, image s * B + b from stem s (the reference's
     `_multi_stem_trunk`). Where `pallas_encoder` and `use_pallas_encoder`
     hold, K2 enc1 and K3 enc2, enc3 run every stem in one launch each and
-    `trunk_tail` takes over; otherwise each stem runs `unet_trunk`."""
-    n_stems = num_stems(stacked_params)
-    b = magnitude.shape[0]
-    fronts = None
+    the grouped enc4..up5 take over; otherwise every layer is grouped
+    (core/grouped.py)."""
+    from spleeterrt_tpu_torch.core import grouped
+
+    s = num_stems(stacked_params)
     if pallas_encoder and use_pallas_encoder(stacked_params, magnitude):
         skips, act3 = kernel_encoder(stacked_params, magnitude, 3, stem_mode,
                                      compute_dtype)
-        fronts = [*skips, act3]
-    out = None
-    for s in range(n_stems):
-        p = stem_params(stacked_params, s)
-        if fronts is None:
-            y = unet_trunk(p, magnitude, stem_mode, compute_dtype)
-        else:  # the kernels' NHWC outputs, as this stem's NCHW views
-            *skips3, x = (a[s * b : (s + 1) * b].permute(0, 3, 1, 2)
-                          for a in fronts)
-            y = trunk_tail(p, x, skips3, stem_mode, compute_dtype)
-        y = y.permute(0, 2, 3, 1)
-        if out is None:
-            out = torch.empty((n_stems * b, *y.shape[1:]), dtype=y.dtype,
-                              device=y.device)
-        out[s * b : (s + 1) * b] = y
-    return out
+        x = grouped.trunk_tail(
+            stacked_params, grouped.to_grouped(act3, s),
+            [grouped.to_grouped(a, s) for a in skips], s, stem_mode,
+            compute_dtype)
+    else:
+        x = grouped.unet_trunk(stacked_params, magnitude, stem_mode,
+                               compute_dtype)
+    return grouped.from_grouped(x, s)
 
 
 def pallas_head(
@@ -527,16 +535,14 @@ def multi_stem_masks_canonical(
 ) -> torch.Tensor:
     """S stacked canonical nets -> (S, B, 2, T, F) fp32, in plain torch.
 
-    The reference runs one net per thread (VST/Source/Spleeter4Stems.c:135);
-    here the nets run one after the other, each over the whole tile batch.
-    """
-    return torch.stack([
-        unet_forward_nchw(
-            stem_params(stacked_params, s), magnitude, stem_mode,
-            compute_dtype, sigmoid,
-        )
-        for s in range(num_stems(stacked_params))
-    ])
+    The reference runs one net per thread (VST/Source/Spleeter4Stems.c:135)
+    and its package vmaps the stem axis into grouped convolutions; here
+    every layer is one grouped convolution over all stems
+    (core/grouped.py)."""
+    from spleeterrt_tpu_torch.core import grouped
+
+    x = grouped.unet_trunk(stacked_params, magnitude, stem_mode, compute_dtype)
+    return grouped.head(stacked_params, x, stem_mode, compute_dtype, sigmoid)
 
 
 def round3_masks(
@@ -549,17 +555,16 @@ def round3_masks(
     pallas_encoder: bool,
 ) -> torch.Tensor:
     """The round-3 route -> (S, B, 2, T, F) fp32: `multi_stem_trunk`, then
-    K10 (`pallas_head`) if `use_head`, else each stem's canonical head."""
+    K10 (`pallas_head`) if `use_head`, else the grouped canonical head."""
+    from spleeterrt_tpu_torch.core import grouped
+
     trunk = multi_stem_trunk(stacked_params, magnitude, stem_mode,
                              compute_dtype, pallas_encoder)
     if use_head:
         return pallas_head(stacked_params, trunk, stem_mode)
-    n_stems = num_stems(stacked_params)
-    return torch.stack([
-        canonical_head(stem_params(stacked_params, s), x.permute(0, 3, 1, 2),
-                       stem_mode, compute_dtype, sigmoid)
-        for s, x in enumerate(trunk.chunk(n_stems))
-    ])
+    return grouped.head(
+        stacked_params, grouped.to_grouped(trunk, num_stems(stacked_params)),
+        stem_mode, compute_dtype, sigmoid)
 
 
 def multi_stem_masks(
@@ -580,7 +585,7 @@ def multi_stem_masks(
     head's or the encoder's kernels out, whatever the FORCE_* switches
     say; the packed route needs both. A differentiated call passes both
     False (core/train.py::separation_loss): the kernels have no backward,
-    so that call runs the canonical `unet_forward_nchw` of each stem."""
+    so that call runs the canonical route, every stem grouped."""
     if (pallas_head and pallas_encoder
             and use_packed_unet(stacked_params, magnitude, sigmoid)):
         return packed_unet_masks(stacked_params, magnitude, stem_mode,

@@ -7,9 +7,9 @@ between `mask * |mix|` and the target stem magnitude, Adam after a clip to
 global norm 1 (the reference package's `optax.chain(clip_by_global_norm,
 adam)`), and a bias-corrected EMA of the params for deployment.
 
-The loss runs the canonical route of core/model.py (each stem's
-`unet_forward_nchw` in torch convolutions), whatever the routing switches
-say: the hand kernels have no backward, and their wrappers raise on an
+The loss runs the canonical route of core/model.py (every stem's layer
+in one grouped torch convolution, core/grouped.py), whatever the routing
+switches say: the hand kernels have no backward, and their wrappers raise on an
 input that requires grad. Params stay float32 leaf tensors; the forward
 casts them to the compute dtype, and only the final logits are float32.
 Evaluation runs the real separation graph (core/separate.py), hand kernels
