@@ -63,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to separate on (default cuda)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler chrome trace to DIR")
+                   help="write a torch.profiler chrome trace to DIR, with "
+                        "the port's spans on a track of their own")
     return p
 
 

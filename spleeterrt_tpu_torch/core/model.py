@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from spleeterrt_tpu_torch.config import STEM_MODE_2, STEM_MODE_4
+from spleeterrt_tpu_torch.utils.timing import span, traced
 
 # (Cin, Cout) per encoder layer (Executable/spleeter.c:144-149).
 ENCODER_CHANNELS = ((2, 16), (16, 32), (32, 64), (64, 128), (128, 256), (256, 512))
@@ -386,6 +387,7 @@ def use_pallas_encoder(stacked_params: Params, magnitude: torch.Tensor) -> bool:
                        PALLAS_ENCODER_MAX_BATCH)
 
 
+@traced("model.mid_trunk")
 def mid_trunk(
     stacked_params: Params,
     act4: torch.Tensor,  # (S * B, T/16, F/16, 128) NHWC: enc4's activation
@@ -585,19 +587,28 @@ def multi_stem_masks(
     head's or the encoder's kernels out, whatever the FORCE_* switches
     say; the packed route needs both. A differentiated call passes both
     False (core/train.py::separation_loss): the kernels have no backward,
-    so that call runs the canonical route, every stem grouped."""
-    if (pallas_head and pallas_encoder
-            and use_packed_unet(stacked_params, magnitude, sigmoid)):
-        return packed_unet_masks(stacked_params, magnitude, stem_mode,
-                                 compute_dtype)
-    use_head = pallas_head and use_pallas_head(stacked_params, magnitude,
-                                               sigmoid)
-    use_enc = pallas_encoder and use_pallas_encoder(stacked_params, magnitude)
-    if use_head or use_enc:
-        return round3_masks(stacked_params, magnitude, stem_mode,
-                            compute_dtype, sigmoid, use_head, pallas_encoder)
-    return multi_stem_masks_canonical(stacked_params, magnitude, stem_mode,
-                                      compute_dtype, sigmoid)
+    so that call runs the canonical route, every stem grouped.
+
+    The call is one span `model.unet`, its `route` attribute packed,
+    round3 or canonical."""
+    with span("model.unet") as sp:
+        if (pallas_head and pallas_encoder
+                and use_packed_unet(stacked_params, magnitude, sigmoid)):
+            sp.note(route="packed")
+            return packed_unet_masks(stacked_params, magnitude, stem_mode,
+                                     compute_dtype)
+        use_head = pallas_head and use_pallas_head(stacked_params, magnitude,
+                                                   sigmoid)
+        use_enc = pallas_encoder and use_pallas_encoder(stacked_params,
+                                                        magnitude)
+        if use_head or use_enc:
+            sp.note(route="round3")
+            return round3_masks(stacked_params, magnitude, stem_mode,
+                                compute_dtype, sigmoid, use_head,
+                                pallas_encoder)
+        sp.note(route="canonical")
+        return multi_stem_masks_canonical(stacked_params, magnitude,
+                                          stem_mode, compute_dtype, sigmoid)
 
 
 def multi_stem_forward(

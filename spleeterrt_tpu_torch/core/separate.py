@@ -55,6 +55,7 @@ from spleeterrt_tpu_torch.core.model import (
     with_stem_axis,
 )
 from spleeterrt_tpu_torch.kernels import pallas_fft, stft_fused
+from spleeterrt_tpu_torch.utils.timing import span, traced
 
 # Out-of-band weights per stem family: the RT engine fixes 0.25 for every
 # stem except bass at 0.0 (VST/Source/Spleeter4Stems.c:73,281).
@@ -237,6 +238,7 @@ def separate_nstem(
     ])
 
 
+@traced("graph.separate_batch")
 def separate_nstem_batch(
     stacked_params: Params,
     tracks: torch.Tensor,  # (B, 2, data_size) pre-padded, equal lengths
@@ -260,6 +262,7 @@ def _residual(tracks: torch.Tensor, vocal: torch.Tensor) -> torch.Tensor:
     return F.pad(tracks, (0, vocal.shape[-1] - tracks.shape[-1])) - vocal
 
 
+@traced("graph.separate_batch")
 def separate_2stem_batch(
     params: Params,  # one net, no stem axis
     tracks: torch.Tensor,  # (B, 2, data_size) pre-padded, equal lengths
@@ -282,7 +285,8 @@ def _2stem_fused(
     """The fused 2-stem body over B tracks -> (B, 2 stems, 2ch, out_len)."""
     vocal = _nstem_fused(with_stem_axis(params), tracks, cfg,
                          (cfg.unaffected_weight,), STEM_MODE_2, unet)[:, 0]
-    return torch.stack([vocal, _residual(tracks, vocal)], dim=1)
+    with span("graph.residual"):
+        return torch.stack([vocal, _residual(tracks, vocal)], dim=1)
 
 
 def separate_2stem(
@@ -302,7 +306,8 @@ def separate_2stem(
     spec = transform.stft(audio, tcfg, audio.shape[-1])
     masks = compute_masks(params, spec, cfg, STEM_MODE_2, unet)
     vocal = transform.istft(apply_mask(spec, masks, cfg), tcfg)
-    return torch.stack([vocal, _residual(audio, vocal)])
+    with span("graph.residual"):
+        return torch.stack([vocal, _residual(audio, vocal)])
 
 
 def _separate_3stem_fused(
@@ -346,6 +351,7 @@ def _separate_3stem_fused(
     return torch.stack([drums, vocals, residual - vocals], dim=1)
 
 
+@traced("graph.separate_batch")
 def separate_3stem_batch(
     params4: Params, params2: Params, tracks: torch.Tensor, cfg: SeparatorConfig,
 ) -> torch.Tensor:
@@ -411,20 +417,28 @@ def separate(
     nets, already on `device`, are `params` for 2 stems, `params4` and
     `params2` for 3, and `stacked_params` (a leading stem axis) for 4 and
     5. Returns {stem_name: (2, n) tensor on `device`}.
+
+    The call is one span `graph.separate` (attributes `stems`, `samples`)
+    around `graph.pad`, the graph's kernel and U-Net spans, and
+    `graph.crop`.
     """
-    audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
-    if audio.ndim == 1:
-        audio = torch.stack([audio, audio])
-    n = audio.shape[-1]
-    preshift, _ = transform.offline_pad_sizes(n, cfg.transform)
-    padded = transform.pad_offline(audio, cfg.transform).contiguous()
-    if cfg.num_stems == 2:
-        stems = separate_2stem(params, padded, cfg)
-    elif cfg.num_stems == 3:
-        stems = separate_3stem(params4, params2, padded, cfg)
-    elif cfg.num_stems == 4:
-        stems = separate_4stem(stacked_params, padded, cfg)
-    else:
-        stems = separate_nstem(stacked_params, padded, cfg, OUT_BAND_5)
-    cropped = stems[..., preshift : preshift + n]
-    return dict(zip(cfg.stem_names, cropped))
+    with span("graph.separate") as sp:
+        with span("graph.pad"):
+            audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+            if audio.ndim == 1:
+                audio = torch.stack([audio, audio])
+            n = audio.shape[-1]
+            preshift, _ = transform.offline_pad_sizes(n, cfg.transform)
+            padded = transform.pad_offline(audio, cfg.transform).contiguous()
+        sp.note(stems=cfg.num_stems, samples=n)
+        if cfg.num_stems == 2:
+            stems = separate_2stem(params, padded, cfg)
+        elif cfg.num_stems == 3:
+            stems = separate_3stem(params4, params2, padded, cfg)
+        elif cfg.num_stems == 4:
+            stems = separate_4stem(stacked_params, padded, cfg)
+        else:
+            stems = separate_nstem(stacked_params, padded, cfg, OUT_BAND_5)
+        with span("graph.crop"):
+            cropped = stems[..., preshift : preshift + n]
+            return dict(zip(cfg.stem_names, cropped))

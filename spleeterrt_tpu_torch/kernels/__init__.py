@@ -11,7 +11,9 @@ raises for a CUDA tensor.
 Launch counts live here, one per kernel name, so one place shows whether a
 run went through the kernels: `reset_launch_counts()` before the run,
 `launch_counts()` after. A wrapper counts a launch where it launches its
-kernel, never for a plain call.
+kernel, never for a plain call. Each wrapper call is also one span
+`kernels.<name>` under the registry's name (utils/timing.py), over its
+checks, weight packing and launch, or its plain version.
 
 No kernel has a backward, and a kernel writes its outputs through raw
 pointers, so they carry no `grad_fn`: a differentiated call would lose its

@@ -45,6 +45,7 @@ from spleeterrt_tpu_torch.kernels import (
     launch,
     stream_of,
 )
+from spleeterrt_tpu_torch.utils.timing import traced
 
 ACTS = ("elu", "leaky")  # 4-stem family / 2-stem subnet (spleeter.c:43-56)
 S2_WIDTHS = (16, 32, 64)  # enc2, enc3, enc4 input channels
@@ -105,6 +106,7 @@ def enc1_plain(mag, w, b, bn_scale, bn_shift, *, act, dtype):
     return _layer_plain([x] * w.shape[0], w, b, bn_scale, bn_shift, act, dtype)
 
 
+@traced("kernels.enc1")
 def enc1(
     mag: torch.Tensor,  # (B, 2, T, F) float32, shared by the stems
     w: torch.Tensor,  # (S, 16, 2, 5, 5) float32
@@ -168,6 +170,7 @@ def enc_s2_plain(x, w, b, bn_scale, bn_shift, *, act):
     return _layer_plain(xs, w, b, bn_scale, bn_shift, act, x.dtype)
 
 
+@traced("kernels.enc_s2")
 def enc_s2(
     x: torch.Tensor,  # (S * B, H, W, C) NHWC, C in S2_WIDTHS, float32 or bf16
     w: torch.Tensor,  # (S, 2C, C, 5, 5) float32

@@ -40,6 +40,7 @@ from spleeterrt_tpu_torch.kernels import (
     stream_of,
     tail,
 )
+from spleeterrt_tpu_torch.utils.timing import traced
 
 ACTS = tail.ACTS  # elu (4-stem family) / relu (the 2-stem subnet)
 WIDTH = 2 * tail.HEAD_WIDTH  # channels of x: [enc1 skip | up5 out]
@@ -64,6 +65,7 @@ def mask_head_error_bound(x, w6, b6, bn_scale6, bn_shift6, w7, b7, *,
                                  w7, b7, act=act).flatten(0, 1)
 
 
+@traced("kernels.mask_head")
 def mask_head(
     x: torch.Tensor,  # (S * B, H, W, 32) NHWC, float32 or bfloat16
     w6: torch.Tensor,  # (S, 32, 1, 5, 5) float32

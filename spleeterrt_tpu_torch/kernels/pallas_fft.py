@@ -33,6 +33,7 @@ from spleeterrt_tpu_torch.kernels import (
     launch as _launch,
     stream_of,
 )
+from spleeterrt_tpu_torch.utils.timing import traced
 
 N = 4096
 N_BINS = N // 2 + 1
@@ -90,6 +91,7 @@ def irfft4096_plain(spec: torch.Tensor, window=None) -> torch.Tensor:
     return _irfft_dc_nyquist_real(spec, window)
 
 
+@traced("kernels.irfft4096")
 def irfft4096(
     spec: torch.Tensor,  # (..., 2049) complex64
     window: torch.Tensor | None = None,  # (4096,) float32
@@ -131,6 +133,7 @@ def masked_irfft4096_plain(
     return _irfft_dc_nyquist_real(spec * gains, window)
 
 
+@traced("kernels.masked_irfft4096")
 def masked_irfft4096(
     spec: torch.Tensor,  # (..., 2049) complex64, shared by the stems
     masks: torch.Tensor,  # (S, ..., bin_limit) float32

@@ -49,6 +49,7 @@ from spleeterrt_tpu_torch.kernels import (
     launch as _launch,
     stream_of,
 )
+from spleeterrt_tpu_torch.utils.timing import traced
 
 N = 4096
 HOP = 1024  # the reference's only hop (Executable/stftFix.h:14-18)
@@ -116,6 +117,7 @@ def stft4096_plain(
     return spec, mag
 
 
+@traced("kernels.stft4096")
 def stft4096(
     audio: torch.Tensor,  # (rows, data_size) float32
     window: torch.Tensor,  # (4096,) analysis window
@@ -203,6 +205,7 @@ def masked_istft4096_plain(
     return overlap_add(frames, TransformConfig(N, N // HOP))
 
 
+@traced("kernels.masked_istft4096")
 def masked_istft4096(
     spec: torch.Tensor,  # (rows, >= n_frames, 2049) complex64
     masks: torch.Tensor,  # (S, tracks * n_tiles, rows / tracks, T, bin_limit) float32

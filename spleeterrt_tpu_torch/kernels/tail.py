@@ -62,6 +62,7 @@ from spleeterrt_tpu_torch.kernels import (
     launch,
     stream_of,
 )
+from spleeterrt_tpu_torch.utils.timing import span, traced
 
 ACTS = ("elu", "relu")  # 4-stem family / 2-stem subnet (spleeter.c:43-56)
 UP_WIDTHS = {64: "up4", 32: "up5"}  # channels per source -> kernel name
@@ -169,13 +170,20 @@ def up_shallow(
     *,
     act: str,
 ) -> torch.Tensor:
-    """up4 or up5 -> (S * B, 2H, 2W, C/2) in the sources' dtype."""
+    """up4 or up5 -> (S * B, 2H, 2W, C/2) in the sources' dtype; past the
+    sources' checks, one span `kernels.up4` or `kernels.up5`."""
     check_no_grad("up_shallow", skip, prev, w, b, bn_scale, bn_shift)
     _check_sources(skip, prev, ("skip", "prev"))
-    dev = skip.device
-    sb, h, wd, c = skip.shape
+    c = skip.shape[-1]
     if c not in UP_WIDTHS:
         raise ValueError(f"skip must have {tuple(UP_WIDTHS)} channels, got {c}")
+    with span("kernels." + UP_WIDTHS[c]):
+        return _up_shallow(skip, prev, w, b, bn_scale, bn_shift, act=act)
+
+
+def _up_shallow(skip, prev, w, b, bn_scale, bn_shift, *, act):
+    dev = skip.device
+    sb, h, wd, c = skip.shape
     vecs = {"b": b, "bn_scale": bn_scale, "bn_shift": bn_shift}
     s = check_layer(dev, w, (2 * c, c // 2, 5, 5), vecs, c // 2)
     if sb % s:
@@ -351,6 +359,7 @@ def head_mma_attributes(device: torch.device) -> dict[str, int]:
     return dict(zip(("registers", "smem_bytes", "threads", "blocks_per_sm"), attrs))
 
 
+@traced("kernels.head")
 def head(
     skip1: torch.Tensor,  # (S * B, H, W, 16) NHWC: enc1's skip
     up5: torch.Tensor,  # (S * B, H, W, 16): up5's output, same dtype

@@ -37,6 +37,16 @@ code and every rank leaves the group. /separate stays on rank 0. A request
 refused with 400 starts no collective, and the lock orders dispatches, so
 every rank sees the collectives in the same order.
 
+Spans (utils/timing.py; recorded while tracing is on): each POST is a root `service.request` carrying a request id,
+from the handler's entry to the last byte written, around
+`service.read_body`; `service.parse` (WAV read, resample, mono -> stereo;
+the NPZ tracks and their padding for /separate_batch);
+`service.lock_wait` (attribute `waiting`: the requests at the lock,
+this one among them) and `service.locked`, which holds `graph.separate`
+(`graph.separate_batch`) and `service.to_host`, the stems' copy to host
+arrays; then `service.encode` (the WAV or NPZ answer) and
+`service.write`.
+
 Failure contract: malformed input (bad codec bytes, bad params, wrong
 shapes) -> 400; oversized body -> 413; unknown path -> 404; internal
 faults -> 500 with a generic message (the trace goes to the server's log,
@@ -50,7 +60,9 @@ under torchrun as above to spread /separate_batch over N cards.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
+import itertools
 import json
 import struct
 import threading
@@ -67,6 +79,7 @@ from spleeterrt_tpu_torch.core import separate, transform
 from spleeterrt_tpu_torch.io import audio as audio_io, resample
 from spleeterrt_tpu_torch.parallel import distributed
 from spleeterrt_tpu_torch.parallel import mesh as pmesh
+from spleeterrt_tpu_torch.utils.timing import request, span, tracing
 
 # Errors attributable to the request body or params (-> HTTP 400): the
 # reference package's, plus a batch body that is not a zip archive, which
@@ -105,6 +118,8 @@ class SeparationService:
         self.device = torch.device(device)
         self.mesh = mesh
         self._lock = threading.Lock()
+        self._at_lock = 0  # traced requests waiting for or holding the lock
+        self._count_lock = threading.Lock()
 
     def devices(self) -> int:
         """/healthz's device count: the ranks' cards, or this host's
@@ -113,22 +128,49 @@ class SeparationService:
             return self.mesh.size()
         return device_count(self.device)
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """Hold the service's lock over the body. Traced, the wait is the
+        span `service.lock_wait` (attribute `waiting`: the traced requests
+        waiting for or holding the lock at entry, this one among them), the
+        hold `service.locked`."""
+        if not tracing():
+            with self._lock:
+                yield
+            return
+        with self._count_lock:
+            self._at_lock += 1
+            waiting = self._at_lock
+        try:
+            with span("service.lock_wait", waiting=waiting):
+                self._lock.acquire()
+            try:
+                with span("service.locked"):
+                    yield
+            finally:
+                self._lock.release()
+        finally:
+            with self._count_lock:
+                self._at_lock -= 1
+
     def separate_wav(self, wav_bytes: bytes, num_stems: int | None = None):
         """One WAV -> {stem: (2, n) float32} through `separate.separate`."""
         cfg = self.cfg
         if num_stems and num_stems != cfg.num_stems:
             raise ValueError(f"this server separates into {cfg.num_stems} "
                              f"stems, not {num_stems}")
-        data = audio_io.read_wav(wav_bytes)
-        x = data.samples
-        if data.sample_rate != 44100:
-            x = resample.resample(x, data.sample_rate, 44100)
-        if x.shape[0] == 1:
-            x = np.repeat(x, 2, axis=0)
-        with self._lock:
+        with span("service.parse"):
+            data = audio_io.read_wav(wav_bytes)
+            x = data.samples
+            if data.sample_rate != 44100:
+                x = resample.resample(x, data.sample_rate, 44100)
+            if x.shape[0] == 1:
+                x = np.repeat(x, 2, axis=0)
+        with self._locked():
             stems = separate.separate(x[:2], cfg=cfg, device=self.device,
                                       **self.weight_kwargs)
-            return {k: v.cpu().numpy() for k, v in stems.items()}
+            with span("service.to_host"):
+                return {k: v.cpu().numpy() for k, v in stems.items()}
 
     def _stacked(self):
         stacked = self.weight_kwargs.get("stacked_params")
@@ -160,41 +202,26 @@ class SeparationService:
         a batch endpoint, as in the reference package. The body is checked
         before any collective starts."""
         self._stacked()
-        with np.load(io.BytesIO(npz_bytes), allow_pickle=False) as z:
-            names = list(z.files)
-            if not names:
-                raise ValueError("empty NPZ: no tracks")
-            tracks = {}
-            for name in names:
-                x = np.asarray(z[name], np.float32)
-                if x.ndim == 1:
-                    x = np.stack([x, x])
-                if x.ndim != 2 or x.shape[0] not in (1, 2):
-                    raise ValueError(
-                        f"track {name!r}: expected (2, n) or (n,), got {x.shape}"
-                    )
-                if x.shape[0] == 1:
-                    x = np.repeat(x, 2, axis=0)
-                tracks[name] = x
-        lengths = {k: v.shape[-1] for k, v in tracks.items()}
-        n_max = max(lengths.values())
-        batch = np.stack(
-            [np.pad(v, ((0, 0), (0, n_max - v.shape[-1]))) for v in tracks.values()]
-        )
+        with span("service.parse"):
+            tracks = _npz_tracks(npz_bytes)
+            lengths = {k: v.shape[-1] for k, v in tracks.items()}
+            n_max = max(lengths.values())
+            batch = np.stack([np.pad(v, ((0, 0), (0, n_max - v.shape[-1])))
+                              for v in tracks.values()])
         cfg = self.cfg
         preshift, _ = transform.offline_pad_sizes(n_max, cfg.transform)
-        with self._lock:
+        with self._locked():
             padded = transform.pad_offline(
                 torch.from_numpy(batch).to(self.device), cfg.transform
             ).contiguous()
             out = self._batch(padded)
-            result = {
-                f"{name}/{stem}": out[i, s, :, preshift : preshift + lengths[name]]
-                .cpu().numpy()
-                for i, name in enumerate(tracks)
-                for s, stem in enumerate(cfg.stem_names)
-            }
-        return result
+            with span("service.to_host"):
+                return {
+                    f"{name}/{stem}": out[i, s, :, preshift : preshift + lengths[name]]
+                    .cpu().numpy()
+                    for i, name in enumerate(tracks)
+                    for s, stem in enumerate(cfg.stem_names)
+                }
 
     def stop_ranks(self) -> None:
         """Rank 0: send the other ranks the stop op code (a no-op without a
@@ -204,6 +231,28 @@ class SeparationService:
         with self._lock:
             distributed.broadcast_(torch.tensor(
                 [OP_STOP, 0, 0, 0], dtype=torch.int64, device=self.device), 0)
+
+
+def _npz_tracks(npz_bytes: bytes) -> dict[str, np.ndarray]:
+    """The tracks of an NPZ body, each (2, n) float32 ((n,) and (1, n)
+    doubled to stereo); ValueError for no track or another shape."""
+    with np.load(io.BytesIO(npz_bytes), allow_pickle=False) as z:
+        names = list(z.files)
+        if not names:
+            raise ValueError("empty NPZ: no tracks")
+        tracks = {}
+        for name in names:
+            x = np.asarray(z[name], np.float32)
+            if x.ndim == 1:
+                x = np.stack([x, x])
+            if x.ndim != 2 or x.shape[0] not in (1, 2):
+                raise ValueError(
+                    f"track {name!r}: expected (2, n) or (n,), got {x.shape}"
+                )
+            if x.shape[0] == 1:
+                x = np.repeat(x, 2, axis=0)
+            tracks[name] = x
+    return tracks
 
 
 def serve_rank_loop(service: SeparationService) -> int:
@@ -236,6 +285,8 @@ def serve(srv, service: SeparationService) -> None:
 
 
 def _make_handler(service: SeparationService):
+    request_ids = itertools.count(1)
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet test runs
             pass
@@ -248,6 +299,13 @@ def _make_handler(service: SeparationService):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _answer(self, encode, ctype: str, headers=()):
+            """200 with the body `encode()` makes."""
+            with span("service.encode"):
+                body = encode()
+            with span("service.write"):
+                self._send(200, body, ctype, headers)
 
         def do_GET(self):
             if self.path.startswith("/healthz"):
@@ -281,16 +339,21 @@ def _make_handler(service: SeparationService):
             return None
 
         def do_POST(self):
+            with request(next(request_ids)):
+                self._post()
+
+        def _post(self):
             # The body is read before any answer but 413, so that a client
             # still sending it sees the answer and not a reset connection.
-            body = self._read_body()
+            with span("service.read_body"):
+                body = self._read_body()
             if body is None:
                 return
             parsed = urlparse(self.path)
             if parsed.path == "/separate_batch":
                 out = self._run(service.separate_batch, body)
                 if out is not None:
-                    self._send(200, _npz(out), "application/octet-stream")
+                    self._answer(lambda: _npz(out), "application/octet-stream")
                 return
             if parsed.path != "/separate":
                 self._send(404, b"not found", "text/plain")
@@ -309,10 +372,10 @@ def _make_handler(service: SeparationService):
             if stems is None:
                 return
             if fmt == "npz":
-                self._send(200, _npz(stems), "application/octet-stream")
+                self._answer(lambda: _npz(stems), "application/octet-stream")
                 return
-            self._send(200, _wav(np.concatenate(list(stems.values()))), "audio/wav",
-                       [("X-Stem-Order", ",".join(stems))])
+            self._answer(lambda: _wav(np.concatenate(list(stems.values()))),
+                         "audio/wav", [("X-Stem-Order", ",".join(stems))])
 
     return Handler
 

@@ -44,6 +44,7 @@ from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig
 from spleeterrt_tpu_torch.core import transform
 from spleeterrt_tpu_torch.core.model import Params, multi_stem_masks
 from spleeterrt_tpu_torch.kernels import stft_fused
+from spleeterrt_tpu_torch.utils.timing import span
 
 # Fixed engine geometry (VST/Source/Spleeter4Stems.h:1-13).
 FFT_SIZE = 4096
@@ -174,44 +175,53 @@ def block_step_streams(
     """One block of K concurrent independent streams -> (new_state,
     out_block (K, S, 2, T * HOP)), the audio played while `block_in`
     arrives. All K streams' images batch through one U-Net call; stream k's
-    output is that of running it alone."""
+    output is that of running it alone.
+
+    The step is one span `graph.block_step` (attribute `streams`) around
+    `graph.synthesis`, `graph.analysis`, the U-Net's `model.unet` and
+    `graph.state`."""
     k, t, bl = block_in.shape[0], cfg.time_step, cfg.bin_limit
-    dev = block_in.device
-    wa, ws = window_tensors(freq_temporal, dev)
-    uw = torch.tensor(out_band, dtype=torch.float32, device=dev)
-    if state.masks2.shape[0] != n_stems or len(out_band) != n_stems:
-        raise ValueError("state, out_band and n_stems disagree on stems")
+    with span("graph.block_step", streams=k):
+        dev = block_in.device
+        wa, ws = window_tensors(freq_temporal, dev)
+        uw = torch.tensor(out_band, dtype=torch.float32, device=dev)
+        if state.masks2.shape[0] != n_stems or len(out_band) != n_stems:
+            raise ValueError("state, out_band and n_stems disagree on stems")
 
-    # Synthesis of this block's output from the carry: the spectra of block
-    # B-2 under their own masks, K8, then the tails' overlap-add.
-    frames = transform.irfft(masked_spectrum(state.spec2, state.masks2, uw),
-                             FFT_SIZE)
-    out_block, ola_tail = synthesize(frames, state.ola_tail, ws)
-    del frames
+        # Synthesis of this block's output from the carry: the spectra of
+        # block B-2 under their own masks, K8, then the tails' overlap-add.
+        with span("graph.synthesis"):
+            frames = transform.irfft(
+                masked_spectrum(state.spec2, state.masks2, uw), FFT_SIZE)
+            out_block, ola_tail = synthesize(frames, state.ola_tail, ws)
+            del frames
 
-    # Analysis of the incoming block: frame c = ext[c*HOP : c*HOP + FFT_SIZE]
-    # of each channel, through K1 with the analysis window.
-    ext = torch.cat([state.in_tail, block_in], dim=-1)  # (K, 2, (T+3) * HOP)
-    spec_cur, mag_cur = stft_fused.stft4096(
-        ext.reshape(2 * k, -1), wa, t, t, bl, t
-    )
+        # Analysis of the incoming block: frame c = ext[c*HOP : c*HOP +
+        # FFT_SIZE] of each channel, through K1 with the analysis window.
+        with span("graph.analysis"):
+            ext = torch.cat([state.in_tail, block_in], dim=-1)  # (K, 2, (T+3) * HOP)
+            spec_cur, mag_cur = stft_fused.stft4096(
+                ext.reshape(2 * k, -1), wa, t, t, bl, t
+            )
 
-    # Masks for the block now entering the spec2 slot, from its own
-    # magnitudes: what the C engine's background threads (started at that
-    # block's boundary, joined one block later) produce.
-    masks_new = multi_stem_masks(
-        stacked_params, state.mag1, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid
-    )  # (S, K, 2, T, bl)
+        # Masks for the block now entering the spec2 slot, from its own
+        # magnitudes: what the C engine's background threads (started at
+        # that block's boundary, joined one block later) produce.
+        masks_new = multi_stem_masks(
+            stacked_params, state.mag1, STEM_MODE_4, cfg.compute_dtype,
+            cfg.sigmoid
+        )  # (S, K, 2, T, bl)
 
-    new_state = StreamState(
-        in_tail=ext[..., -(FFT_SIZE - HOP):].clone(),
-        spec1=spec_cur.view(k, 2, t, N_BINS),
-        mag1=mag_cur.view(k, 2, t, bl),
-        spec2=state.spec1,
-        masks2=masks_new,
-        ola_tail=ola_tail,
-    )
-    return new_state, out_block
+        with span("graph.state"):
+            new_state = StreamState(
+                in_tail=ext[..., -(FFT_SIZE - HOP):].clone(),
+                spec1=spec_cur.view(k, 2, t, N_BINS),
+                mag1=mag_cur.view(k, 2, t, bl),
+                spec2=state.spec1,
+                masks2=masks_new,
+                ola_tail=ola_tail,
+            )
+        return new_state, out_block
 
 
 def block_step(
