@@ -19,8 +19,9 @@ Phases, each of which raises (non-zero exit) on failure:
    convolution (K2, K3) or transposed convolution (K4, K5) alone, a
    convolution-only yardstick; K2, K4 and K5 also with the tensor-core
    template's registers, shared memory and occupancy); K8 on the masked
-   spectrum of one streaming block of 4 streams and K9 at the 30 s
-   overlap-2 shapes, both in float32 and each run twice (bit-identical).
+   spectrum of one streaming block of 4 streams, the streaming synthesis
+   on the same block (with a carry in) and K9 at the 30 s overlap-2
+   shapes, all in float32 and each run twice (bit-identical).
 3. The main path through the user's entry point: the CLI separates a 30 s
    synthetic WAV into 4 stems (VST config, bf16, random full-width
    weights); the launch counts must be K1, K2, K4, K5, K6, K7 once and K3
@@ -32,15 +33,16 @@ Phases, each of which raises (non-zero exit) on failure:
 5. The streaming path through its entry point: the streaming CLI on the
    30 s WAV (VST config, bf16, --split); four finite stems as long as the
    input, silent for the engine's first two blocks plus one hop; launch
-   counts of exactly one block step's set (K1, K2, K3 x3, K4, K5, K6, K8)
-   per block step; a profile of one block step shows no library
-   convolution beyond the mid trunk's and no library FFT.
+   counts of exactly one block step's set (K1, K2, K3 x3, K4, K5, K6, the
+   streaming synthesis) per block step; a profile of one block step shows
+   no library convolution beyond the mid trunk's and no library FFT.
 6. Streaming quality: stream_scan over 4 blocks of the smoke audio, bf16
    and fp32 on the card, against the same scan in fp32 on CPU tensors
    (every kernel's plain version): per-stem SNR >= 42 dB / >= 80 dB.
 7. The overlap-2 graph (TransformConfig(overlap=2), hop 2048):
    separate.separate on the 30 s audio launches K2-K6 and K9 and no K1 or
-   K7; fp32 kernels against the plain fp32 graph >= 80 dB per stem.
+   K7; fp32 kernels against the plain fp32 graph >= 80 dB per stem; the
+   2-stem graph at overlap 2 launches K8 once (transform.istft).
 8. 4-stem separation time at 150 s and 300 s (CUDA events): realtime
    factor, marginal rate, peak device memory, a per-stage breakdown at
    300 s (K1, K2, K3 x3, mid trunk, K4, K5, K6, K7, each kernel beside its
@@ -56,8 +58,10 @@ Phases, each of which raises (non-zero exit) on failure:
 9. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
    4, 16 and 64 streams, carrying the state: ms per block, the aggregate
    realtime factor, peak memory, the largest K inside the 5.944 s block
-   deadline, a stage breakdown at K = 16 (with torch.fft.irfft beside K8's
-   stage) and a profile at K = 1 and 16.
+   deadline, a stage breakdown at K = 16 and 64 (with torch.fft.irfft
+   beside K8's stage, and the streaming synthesis beside its bound, its
+   plain version and the chain it replaced: the mask multiply, K8 and the
+   overlap-add in torch) and a profile at K = 1 and 16.
 10. 2, 3 and 5 stems through the CLI on the 30 s WAV (bf16): 2 stems at the
    CLI's defaults (the reference exe's config: bin_limit 1024, time_step
    512) with random weights, 3 stems from a quantized two-subnet file the
@@ -248,6 +252,7 @@ from spleeterrt_tpu_torch.kernels import (
     mask_head,
     pallas_fft,
     stft_fused,
+    stream_synthesis,
     tail,
 )
 from spleeterrt_tpu_torch.parallel import distributed, timeshard
@@ -278,9 +283,9 @@ UNET_BF16_ULPS = 2
 # The CLI's one 4-stem separation: every kernel of the path, K3 three times.
 MAIN_PATH_LAUNCHES = {"stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1,
                       "up5": 1, "head": 1, "masked_istft4096": 1}
-# One streaming block step: analysis (K1), the U-Net, synthesis (K8).
+# One streaming block step: analysis (K1), the U-Net, the synthesis.
 STREAM_BLOCK_LAUNCHES = {"stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1,
-                         "up5": 1, "head": 1, "irfft4096": 1}
+                         "up5": 1, "head": 1, "stream_synthesis4096": 1}
 # The overlap-2 graph: plain STFT, the U-Net, K9, plain overlap-add.
 OVERLAP2_LAUNCHES = {"enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1, "head": 1,
                      "masked_irfft4096": 1}
@@ -331,6 +336,7 @@ KERNEL_TABLE = (
     ("irfft4096", "irfft.cu", "pallas_fft.py:72"),
     ("masked_irfft4096", "irfft.cu", "pallas_fft.py:186"),
     ("mask_head", "head.cu", "mask_head.py:86"),
+    ("stream_synthesis4096", "stream_synthesis.cu", None),  # ports no TPU kernel
 )
 
 
@@ -497,6 +503,8 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     k9_args = overlap2_k9_args(audio, device)
     k9_err = check_inverse("K9 masked_irfft4096", pallas_fft.masked_irfft4096,
                            pallas_fft.masked_irfft4096_plain, k9_args)
+    synth_args = stream_synthesis_args(audio)
+    synth_err = check_stream_synthesis(synth_args)
 
     report = {}
     for name, shapes, fn, plain, args, err in (
@@ -508,6 +516,9 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
          pallas_fft.irfft4096_plain, k8_args, k8_err),
         ("masked_irfft4096", "30 s overlap-2", pallas_fft.masked_irfft4096,
          pallas_fft.masked_irfft4096_plain, k9_args, k9_err),
+        ("stream_synthesis4096", "4-stream block",
+         stream_synthesis.stream_synthesis4096,
+         stream_synthesis.stream_synthesis4096_plain, synth_args, synth_err),
     ):
         ms = cuda_ms(lambda: fn(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
@@ -520,7 +531,7 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
         report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         **bound_entry([(name, args, {})]),
                         "library_ms": library_ms}
-    del k8_args, k9_args
+    del k8_args, k9_args, synth_args
 
     # cuDNN's transposed convolutions (dgrad) may sum in another order from
     # call to call, which moves the plain chain's outputs and so each
@@ -809,6 +820,13 @@ def kernel_work(name: str, args, kw) -> tuple[float, float, torch.dtype]:
         out = s * rows * (n_frames * 1024 + 3072) * 4
         ops = s * rows * n_frames * (RFFT_OPS + 2 * stft_fused.N_BINS + 2 * 4096)
         return read + out, ops, torch.float32
+    if name == "stream_synthesis4096":
+        spec2, masks2, _, _, ola_tail = args
+        frames = masks2.shape[0] * spec2.numel() // stream_synthesis.N_BINS
+        ops = frames * (RFFT_OPS + 2 * stream_synthesis.N_BINS
+                        + 2 * stream_synthesis.SYNTH_LEN)
+        out = frames * stream_synthesis.HOP * 4 + nbytes(ola_tail)
+        return nbytes(*args) + out, ops, torch.float32
     if name in ("irfft4096", "masked_irfft4096"):
         spec = args[0]
         s = args[1].shape[0] if name == "masked_irfft4096" else 1
@@ -874,23 +892,54 @@ def check_inverse(label: str, fn, plain, args) -> float:
     return err
 
 
-def stream_block_spectrum(audio: torch.Tensor, k: int = 4) -> torch.Tensor:
-    """K8's input in one streaming block of k streams: the masked (k, 4, 2,
-    T, 2049) spectrum of k consecutive blocks of `audio` (the analysis
-    window's hop-1024 frames), under random masks (seed SEED) below
-    BIN_LIMIT and the engine's out-of-band weights above it."""
+def stream_synthesis_args(audio: torch.Tensor, k: int = 4) -> tuple:
+    """The streaming synthesis' arguments in one block of k streams: the
+    (k, 2, T, 2049) spectrum of k consecutive blocks of `audio` (the
+    analysis window's hop-1024 frames), random masks (seed SEED) below
+    BIN_LIMIT, the engine's out-of-band weights and synthesis window, and
+    a random carry (seed SEED + 1)."""
     device = audio.device
     ext = torch.stack([audio[:, i * BLOCK_LEN : (i + 1) * BLOCK_LEN + 3072]
                        for i in range(k)])
-    wa, _ = stream.window_tensors(1.0, device)
+    wa, ws = stream.window_tensors(1.0, device)
     spec, _ = stft_fused.stft4096_plain(
         ext.reshape(2 * k, -1), wa, TIME_STEP, TIME_STEP, BIN_LIMIT, TIME_STEP)
     gen = torch.Generator(device=device).manual_seed(SEED)
     masks = torch.rand((4, k, 2, TIME_STEP, BIN_LIMIT), generator=gen,
                        device=device)
-    return stream.masked_spectrum(
-        spec.view(k, 2, TIME_STEP, -1), masks,
-        torch.tensor(stream.RT_OUT_BAND, device=device)).contiguous()
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    tail = 0.1 * torch.randn((k, 4, 2, stream.HOP), generator=gen, device=device)
+    return (spec.view(k, 2, TIME_STEP, -1), masks,
+            torch.tensor(stream.RT_OUT_BAND, device=device), ws, tail)
+
+
+def stream_block_spectrum(audio: torch.Tensor, k: int = 4) -> torch.Tensor:
+    """K8's input in one streaming block of k streams: the masked (k, 4, 2,
+    T, 2049) spectrum of stream_synthesis_args' block, under its masks below
+    BIN_LIMIT and the engine's out-of-band weights above it."""
+    spec, masks, out_band, _, _ = stream_synthesis_args(audio, k)
+    return stream_synthesis.masked_spectrum(spec, masks, out_band).contiguous()
+
+
+def check_stream_synthesis(args) -> float:
+    """The streaming synthesis against its plain version, run twice; returns
+    the max error over the block and the carry, held to K7_REL_BOUND of
+    max(1, max|plain|)."""
+    y, tail = stream_synthesis.stream_synthesis4096(*args)
+    y2, tail2 = stream_synthesis.stream_synthesis4096(*args)
+    py, ptail = stream_synthesis.stream_synthesis4096_plain(*args)
+    torch.cuda.synchronize()
+    err = max((y - py).abs().max().item(), (tail - ptail).abs().max().item())
+    bound = K7_REL_BOUND * max(1.0, py.abs().max().item(), ptail.abs().max().item())
+    same = torch.equal(y, y2) and torch.equal(tail, tail2)
+    log(f"[stream_synthesis4096] out {tuple(y.shape)} carry {tuple(tail.shape)}: "
+        f"max |kernel - plain| = {err:.3e}, bound {bound:.3e}; two runs "
+        f"bit-identical: {same}")
+    if not err <= bound:
+        raise AssertionError("the streaming synthesis disagrees with its plain version")
+    if not same:
+        raise AssertionError("the streaming synthesis is not deterministic")
+    return err
 
 
 def overlap2_k9_args(audio: torch.Tensor, device) -> tuple:
@@ -1275,7 +1324,8 @@ def phase_stream_quality(device) -> None:
 def phase_overlap2(device) -> dict:
     """separate.separate with TransformConfig(overlap=2) on the 30 s audio:
     launch counts (bf16, the VST config) and fp32 quality against the plain
-    graph; returns the launch counts."""
+    graph; then the 2-stem graph at overlap 2, whose transform.istft
+    launches K8 once. Returns the launch counts of both runs."""
     x = synthetic_audio(SMOKE_SECONDS)
     stacked = random_stacked(device)
     kernels.reset_launch_counts()
@@ -1299,13 +1349,22 @@ def phase_overlap2(device) -> dict:
             f"(>= {SNR_FP32_MIN_DB})")
         if not fp32 >= SNR_FP32_MIN_DB:
             raise AssertionError(f"overlap 2, {stem}: SNR below its bound")
-    return launches
+    net = {k: {f: v[0] for f, v in ly.items()} for k, ly in stacked.items()}
+    kernels.reset_launch_counts()
+    separate.separate(x, params=net, cfg=exe_config(2, torch.bfloat16, overlap=2),
+                      device=device)
+    two_stem = kernels.launch_counts()
+    log(f"[overlap 2] 2 stems: launches {two_stem}")
+    if two_stem["irfft4096"] != 1 or two_stem["masked_irfft4096"]:
+        raise AssertionError(f"2-stem overlap-2 launches {two_stem}, expected "
+                             f"K8 once and no K9")
+    return {name: launches[name] + two_stem[name] for name in launches}
 
 
 def phase_stream_timing(device) -> None:
     """block_step_streams at the VST config in bf16 for each of
     STREAM_COUNTS, carrying the state as a serving loop does; a stage
-    breakdown at K = 16 and a profile at K = 1 and 16."""
+    breakdown at K = 16 and 64 and a profile at K = 1 and 16."""
     cfg = vst_config(torch.bfloat16)
     stacked = random_stacked(device)
     rng = np.random.default_rng(SEED)
@@ -1335,7 +1394,7 @@ def phase_stream_timing(device) -> None:
         log(f"[streams] K = {k}: {best:.3f} ms per block step, aggregate "
             f"{k * BLOCK_SECONDS / (best / 1e3):.2f}x realtime, peak memory "
             f"{peak / 2**30:.3f} GiB")
-        if k == 16:
+        if k in (16, 64):
             stream_stages(stacked, state, block, cfg)
         if k in (1, 16):
             profile_device(f"one block step, K = {k}", lambda: (
@@ -1348,29 +1407,48 @@ def phase_stream_timing(device) -> None:
 
 def stream_stages(stacked, state, block, cfg) -> None:
     """One block step's stages timed alone at the given state, each kernel
-    beside its plain version."""
+    beside its plain version; the streaming synthesis also beside its bound
+    and the chain it replaced (the mask multiply, K8, the overlap-add)."""
     k = block.shape[0]
     dev = block.device
     wa, ws = stream.window_tensors(1.0, dev)
     uw = torch.tensor(stream.RT_OUT_BAND, device=dev)
     ext = torch.cat([state.in_tail, block], dim=-1).reshape(2 * k, -1)
     k1_args = (ext, wa, TIME_STEP, TIME_STEP, BIN_LIMIT, TIME_STEP)
-    masked = stream.masked_spectrum(state.spec2, state.masks2, uw)
+    synth_args = (state.spec2, state.masks2, uw, ws, state.ola_tail)
+    masked = stream_synthesis.masked_spectrum(state.spec2, state.masks2, uw)
     frames = pallas_fft.irfft4096(masked)
+
+    def chain():
+        frames = pallas_fft.irfft4096(
+            stream_synthesis.masked_spectrum(state.spec2, state.masks2, uw))
+        return stream_synthesis.synthesize(frames, state.ola_tail, ws)
+
+    synth_ms = cuda_ms(lambda: stream_synthesis.stream_synthesis4096(*synth_args), 10)
+    bound = bound_entry([("stream_synthesis4096", synth_args, {})])
+    attrs = stream_synthesis.stream_synthesis4096_attrs(dev)
+    log(f"[streams] K = {k} stream_synthesis4096: {synth_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+        f"{100 * bound['bound_ms'] / synth_ms:.1f}% of it; run "
+        f"{stream_synthesis.SYNTH_RUN_HOPS} hops, {resources(attrs)}")
     stages = {
+        "stream_synthesis4096": synth_ms,
+        "stream_synthesis4096 plain": cuda_ms(
+            lambda: stream_synthesis.stream_synthesis4096_plain(*synth_args), 5, 1),
+        "mask multiply + K8 + overlap-add (the chain it replaced)": cuda_ms(chain, 10),
         "K1 stft4096": cuda_ms(lambda: stft_fused.stft4096(*k1_args), 10),
         "K1 plain": cuda_ms(lambda: stft_fused.stft4096_plain(*k1_args), 10),
         "U-Net x4 stems, packed (K2-K6 + mid trunk)": cuda_ms(
             lambda: model.multi_stem_masks(stacked, state.mag1, STEM_MODE_4,
                                            cfg.compute_dtype, cfg.sigmoid), 5, 1),
         "mask multiply (torch)": cuda_ms(
-            lambda: stream.masked_spectrum(state.spec2, state.masks2, uw), 10),
+            lambda: stream_synthesis.masked_spectrum(state.spec2, state.masks2, uw), 10),
         "K8 irfft4096": cuda_ms(lambda: pallas_fft.irfft4096(masked), 10),
         "K8 plain": cuda_ms(lambda: pallas_fft.irfft4096_plain(masked), 5, 1),
         "torch.fft.irfft (cuFFT alone)": cuda_ms(
             lambda: torch.fft.irfft(masked, n=4096), 10),
         "tails + overlap-add (torch)": cuda_ms(
-            lambda: stream.synthesize(frames, state.ola_tail, ws), 10),
+            lambda: stream_synthesis.synthesize(frames, state.ola_tail, ws), 10),
         "block step": cuda_ms(
             lambda: stream.block_step_streams(stacked, state, block, cfg), 5, 1),
     }
@@ -3313,15 +3391,17 @@ def main() -> int:
         phase_host(workdir, device, smi)
     phase_stem_axis(device, smi)
     # Each kernel's launches on the path that runs it: the offline CLI for
-    # K1-K7, the streaming CLI for K8, the overlap-2 graph for K9, the
-    # 2-stem CLI's round-3 route for K10.
-    launches.update(irfft4096=stream_launches["irfft4096"],
+    # K1-K7, the overlap-2 graphs for K8 (2 stems) and K9 (4 stems), the
+    # 2-stem CLI's round-3 route for K10, the streaming CLI for the
+    # streaming synthesis.
+    launches.update(irfft4096=overlap2_launches["irfft4096"],
                     masked_irfft4096=overlap2_launches["masked_irfft4096"],
-                    mask_head=round3_launches["mask_head"])
+                    mask_head=round3_launches["mask_head"],
+                    stream_synthesis4096=stream_launches["stream_synthesis4096"])
     report = [
         {"name": name, "route": "cuda",
          "source": f"spleeterrt_tpu_torch/csrc/{src}",
-         "replaces": f"spleeterrt_tpu/kernels/{tpu}",
+         "replaces": tpu and f"spleeterrt_tpu/kernels/{tpu}",
          "launches": launches[name], **measured[name]}
         for name, src, tpu in KERNEL_TABLE
     ]

@@ -1,24 +1,28 @@
-"""Time the two kernels at the U-Net's output ends at several shapes on one
+"""Time the kernels at the U-Net's output ends at several shapes on one
 CUDA card: K7 (csrc/istft.cu, the fused masked iSTFT) over its run length
 and groups a block, and bf16 K6 (csrc/head.cu::head_mma_kernel, the head's
 tensor-core template) over its mask tile, at the 300 s shapes of the
 4-stem VST graph (K7 also at the 2-stem exe graph's, where it runs with
-one stem).
+one stem); and the streaming synthesis (csrc/stream_synthesis.cu) over its
+run length and groups a block at one block step of 64 streams of the VST
+engine.
 
     python -m spleeterrt_tpu_torch.kernels.sweep_ends [--seconds 300]
 
-K7's run length and groups are arguments of its launch, so every pair
-runs from the package's library (called directly, with the wrapper's
-checks done here); each mask tile of K6 is built into a
+The run lengths and groups of K7 and the streaming synthesis are
+arguments of their launches, so every pair runs from the package's
+library; each mask tile of K6 is built into a
 library of its own under build/sweep_ends/ (one nvcc per tile, all
 started together). Every shape is checked against the plain version (K7
 to 1e-5 of max(1, max|plain|), K6 per pixel to tail.head_error_bound)
-and bit for bit over two runs; a shape that fails is reported and not
+and bit for bit over two runs (the streaming synthesis, output and carry, to
+1e-5 of max(1, max|plain|)); a shape that fails is reported and not
 timed. The shapes take turns over three rounds and the best round is
 kept. Prints one line per shape with its time and its registers, shared
 memory, threads and resident blocks an SM, and the card's nvidia-smi
 line. The shapes the package launches (stft_fused.RUN_HOPS and
-ISTFT_GROUPS, HEAD_MMA in csrc/head.cu) were chosen from this table.
+ISTFT_GROUPS, HEAD_MMA in csrc/head.cu, stream_synthesis.SYNTH_RUN_HOPS
+and SYNTH_GROUPS) were chosen from this table.
 """
 
 from __future__ import annotations
@@ -36,12 +40,17 @@ from spleeterrt_tpu_torch.kernels import (
     launch,
     stft_fused,
     stream_of,
+    stream_synthesis,
     tail,
 )
 
 RUNS = (16, 32, 64, 128)  # K7: output hops a group walks
 GROUPS = (1, 2, 4)  # K7: 128-thread groups a block
 HEAD_TILES = ((32, 56), (16, 56), (32, 120), (64, 56), (16, 120))  # K6: TY, TX
+SYNTH_RUNS = (8, 16, 32, 64, 128, 256)  # streaming synthesis: hops a group walks
+SYNTH_GROUPS = (1, 2)  # streaming synthesis: 128-thread groups a block
+# (streams, stems, time_step, bin_limit) of the VST engine's block step.
+SYNTH_SHAPE = (64, 4, 256, 1536)
 # (stems, rows, bin_limit, time_step, out_band) of K7's two graphs.
 ISTFT_GRAPHS = {"4 stems, VST": (4, 2, 1536, 256, (1.0, 1.0, 1.0, 1.0)),
                 "2 stems, exe": (1, 2, 1024, 512, (0.0,))}
@@ -184,6 +193,50 @@ def sweep_head(dev, seconds: float, libs: dict) -> None:
               f"bound {worst:.3e}; {_attrs_line(attrs)}", flush=True)
 
 
+def sweep_synthesis(dev) -> None:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k, n_stems, t, bin_limit = SYNTH_SHAPE
+    spec2 = torch.complex(*torch.randn((2, k, 2, t, 2049), generator=gen, device=dev))
+    masks2 = torch.rand((n_stems, k, 2, t, bin_limit), generator=gen, device=dev)
+    out_band = torch.tensor((0.25, 0.0, 0.25, 0.25), device=dev)
+    ws = torch.hann_window(2048, device=dev)
+    ola_tail = 0.02 * torch.randn((k, n_stems, 2, 1024), generator=gen, device=dev)
+    args = (spec2, masks2, out_band, ws, ola_tail)
+    ref = stream_synthesis.stream_synthesis4096_plain(*args)
+    bound = 1e-5 * max(1.0, *(r.abs().max().item() for r in ref))
+    out, tail_out = (torch.empty_like(r) for r in ref)
+
+    def run(run_hops, groups):
+        launch(stream_synthesis._lib().spleeterrt_stream_synthesis4096,
+               spec2.data_ptr(), masks2.data_ptr(), out_band.data_ptr(), ws.data_ptr(),
+               ola_tail.data_ptr(), irfft_twiddles(dev).data_ptr(), n_stems, 2 * k, t,
+               bin_limit, run_hops, groups, out.data_ptr(), tail_out.data_ptr(),
+               stream_of(dev))
+
+    ok = {}
+    for shape in [(r, g) for r in SYNTH_RUNS for g in SYNTH_GROUPS]:
+        run(*shape)
+        first = out.clone(), tail_out.clone()
+        run(*shape)
+        err = max((a - b).abs().max().item() for a, b in zip(first, ref))
+        same = torch.equal(first[0], out) and torch.equal(first[1], tail_out)
+        if not (err <= bound and same):
+            print(f"[sweep] synthesis run {shape[0]}, groups {shape[1]}: WRONG, max "
+                  f"error {err:.3e} (bound {bound:.3e}), bit-identical {same}", flush=True)
+            continue
+        ok[shape] = [err, float("inf")]
+    del first
+    for _ in range(3):
+        for shape, r in ok.items():
+            r[1] = min(r[1], _time(lambda: run(*shape)))
+    for (run_hops, groups), (err, ms) in ok.items():
+        a = stream_synthesis.stream_synthesis4096_attrs(dev, groups)
+        print(f"[sweep] stream_synthesis4096 ({k} streams x {n_stems} stems x {t} frames, "
+              f"bin_limit {bin_limit}), run {run_hops} hops, {groups} groups a block: "
+              f"{ms:.4f} ms, max error {err:.3e}; {_attrs_line(list(a.values()))}",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seconds", type=float, default=300.0,
@@ -200,6 +253,7 @@ def main(argv=None) -> int:
         main_lib.result()
     sweep_istft(dev, args.seconds)
     sweep_head(dev, args.seconds, libs)
+    sweep_synthesis(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())

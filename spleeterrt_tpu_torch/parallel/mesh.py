@@ -16,8 +16,8 @@ process group (parallel/distributed.py), one rank a device:
 Every entry point is collective: every rank of the group calls it with the
 same arguments (the whole stacked params and the whole input), takes its
 slice, runs the hand kernels on its own device (K1, the packed U-Net's
-K2-K6 or the round-3 route's K2, K3 and K10, K7; K8 on the streams, K9 at
-hops other than 1024), and gathers what the reference's `out_specs` make
+K2-K6 or the round-3 route's K2, K3 and K10, K7; the streaming synthesis
+on the streams, K9 at hops other than 1024), and gathers what the reference's `out_specs` make
 replicated, so every rank returns the same result. Where the stems do not
 divide the "stem" axis, each group's slice is padded with zero masks to
 the ceiling for the gather and cropped after it: the kernels stay live on
@@ -330,7 +330,7 @@ def make_stream_fn(cfg: SeparatorConfig, mesh: DeviceMesh, n_stems: int = 4,
     (stream.init_state_streams(cfg, n_stems, K // n_ranks, device) before
     the first block), sharded on its leading stream axis as the
     reference's. Each rank runs stream.block_step_streams (K1, the U-Net,
-    K8) on its streams; `out_blocks` (K, S, 2, T * HOP) is gathered on
+    the streaming synthesis) on its streams; `out_blocks` (K, S, 2, T * HOP) is gathered on
     every rank. Collective."""
     if out_band is None:
         out_band = stream_mod.RT_OUT_BAND[:n_stems]

@@ -16,12 +16,12 @@ Port of the reference package's block engine
   output depends only on the carry (tests/oracle/streaming_oracle.py
   checks this hop by hop against the C engine's semantics).
 
-Per block on a CUDA device the kernels are K8 (`transform.irfft` ->
-`pallas_fft.irfft4096`) for the synthesis, K1 (`stft_fused.stft4096`,
-whose window is an argument) for the analysis, and the packed U-Net (K2,
-K3 x3, the mid trunk, K4, K5, K6) with the K streams as its batch. The
-mask multiply, the synthesis tails and their overlap-add are plain torch.
-CPU tensors take the kernels' plain versions.
+Per block on a CUDA device the kernels are one synthesis kernel
+(`stream_synthesis.stream_synthesis4096`: the mask multiply, the inverse
+FFTs, the synthesis window and the overlap-add), K1
+(`stft_fused.stft4096`, whose window is an argument) for the analysis,
+and the packed U-Net (K2, K3 x3, the mid trunk, K4, K5, K6) with the K
+streams as its batch. CPU tensors take the kernels' plain versions.
 
 The carry differs from the reference's inside: it keeps the magnitude of
 the last block in K1's NCHW tiles (the next U-Net input) beside its
@@ -41,9 +41,9 @@ import numpy as np
 import torch
 
 from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig
-from spleeterrt_tpu_torch.core import transform
 from spleeterrt_tpu_torch.core.model import Params, multi_stem_masks
 from spleeterrt_tpu_torch.kernels import stft_fused
+from spleeterrt_tpu_torch.kernels.stream_synthesis import stream_synthesis4096
 from spleeterrt_tpu_torch.utils.timing import span
 
 # Fixed engine geometry (VST/Source/Spleeter4Stems.h:1-13).
@@ -101,6 +101,12 @@ def window_tensors(
             torch.as_tensor(ws, dtype=torch.float32, device=device))
 
 
+@functools.cache
+def out_band_tensor(out_band: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The out-of-band weights as a float32 tensor on `device`."""
+    return torch.tensor(out_band, dtype=torch.float32, device=device)
+
+
 class StreamState(NamedTuple):
     """The carry between blocks of K streams (T = time_step, S stems)."""
 
@@ -135,34 +141,6 @@ def init_state(cfg: SeparatorConfig, n_stems: int, device=None) -> StreamState:
     return init_state_streams(cfg, n_stems, 1, device)
 
 
-def masked_spectrum(
-    spec2: torch.Tensor,  # (K, 2, T, N_BINS) complex64
-    masks2: torch.Tensor,  # (S, K, 2, T, bin_limit)
-    out_band: torch.Tensor,  # (S,) float32
-) -> torch.Tensor:
-    """-> (K, S, 2, T, N_BINS) complex64: each stem's mask below bin_limit
-    and its out-of-band weight from there on."""
-    bl = masks2.shape[-1]
-    spec = spec2[:, None]
-    return torch.cat([
-        spec[..., :bl] * masks2.transpose(0, 1),
-        spec[..., bl:] * out_band[:, None, None, None],
-    ], dim=-1)
-
-
-def synthesize(
-    frames: torch.Tensor,  # (K, S, 2, T, FFT_SIZE) inverse FFTs
-    ola_tail: torch.Tensor,  # (K, S, 2, HOP)
-    ws: torch.Tensor,  # (SYNTH_LEN,) synthesis window
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (out_block (K, S, 2, T * HOP), the next ola_tail): the windowed
-    last SYNTH_LEN samples of each frame, overlap-added at HOP. Out hop c
-    is tails[c][:HOP] + tails[c-1][HOP:], with c-1 = -1 from the carry."""
-    tails = frames[..., SAMPLE_SHIFT:] * ws
-    prevs = torch.cat([ola_tail[:, :, :, None], tails[..., :-1, HOP:]], dim=3)
-    return (tails[..., :HOP] + prevs).flatten(-2), tails[..., -1, HOP:].clone()
-
-
 def block_step_streams(
     stacked_params: Params,
     state: StreamState,
@@ -184,17 +162,16 @@ def block_step_streams(
     with span("graph.block_step", streams=k):
         dev = block_in.device
         wa, ws = window_tensors(freq_temporal, dev)
-        uw = torch.tensor(out_band, dtype=torch.float32, device=dev)
         if state.masks2.shape[0] != n_stems or len(out_band) != n_stems:
             raise ValueError("state, out_band and n_stems disagree on stems")
 
         # Synthesis of this block's output from the carry: the spectra of
-        # block B-2 under their own masks, K8, then the tails' overlap-add.
+        # block B-2 under their own masks, overlap-added after the tails of
+        # the block before, in one kernel.
         with span("graph.synthesis"):
-            frames = transform.irfft(
-                masked_spectrum(state.spec2, state.masks2, uw), FFT_SIZE)
-            out_block, ola_tail = synthesize(frames, state.ola_tail, ws)
-            del frames
+            out_block, ola_tail = stream_synthesis4096(
+                state.spec2, state.masks2, out_band_tensor(tuple(out_band), dev),
+                ws, state.ola_tail)
 
         # Analysis of the incoming block: frame c = ext[c*HOP : c*HOP +
         # FFT_SIZE] of each channel, through K1 with the analysis window.

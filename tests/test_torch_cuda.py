@@ -23,7 +23,10 @@ and equal to K10 on the concatenated sources, and K6 and K10 refusing a
 bf16 source off 16-byte alignment; for
 K8/K9 one frame and odd frame counts, bin limits 1, 512, 777, 2048 and
 2049, with and without a window; for K10 one row tile, F/2 = 16, S * B = 1 and 64
-and the round-3 route; one streaming block step at K = 1; K1 and K7 with
+and the round-3 route; for the streaming synthesis K = 1, 3 and 64 streams,
+T = 1, 37 and 256 frames, bin limits 1, 512, 1536 and 2049, a carry in,
+1, 2 and 5 stems, runs of 1 to 300 hops and 1 or 2 groups a block (run
+twice, bit-identical); one streaming block step at K = 1; K1 and K7 with
 1 to 5 tracks folded into their rows at an odd tile count (each track bit
 for bit its lone launch); the 2-, 3- and 4-stem batch graphs' launch
 counts over three tracks; and every wrapper refusing a grid past CUDA's
@@ -56,6 +59,7 @@ from spleeterrt_tpu_torch.kernels import (
     mask_head,
     pallas_fft,
     stft_fused,
+    stream_synthesis,
     tail,
 )
 from spleeterrt_tpu_torch.runtime import stream
@@ -461,7 +465,8 @@ def test_packed_unet_runs_every_kernel_once(device):
     counts = kernels.launch_counts()
     assert counts == {"stft4096": 0, "enc1": 1, "enc_s2": 3, "up4": 1,
                       "up5": 1, "head": 1, "masked_istft4096": 0,
-                      "irfft4096": 0, "masked_irfft4096": 0, "mask_head": 0}
+                      "irfft4096": 0, "masked_irfft4096": 0, "mask_head": 0,
+                      "stream_synthesis4096": 0}
     cpu = {k: {f: v.cpu() for f, v in ly.items()} for k, ly in stacked.items()}
     ref = model.multi_stem_masks(cpu, mag.cpu())
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
@@ -509,7 +514,7 @@ def test_round3_route_runs_its_kernels(device, monkeypatch):
     assert kernels.launch_counts() == {
         "stft4096": 0, "enc1": 1, "enc_s2": 2, "up4": 0, "up5": 0, "head": 0,
         "masked_istft4096": 0, "irfft4096": 0, "masked_irfft4096": 0,
-        "mask_head": 1}
+        "mask_head": 1, "stream_synthesis4096": 0}
     ref = model.multi_stem_masks(cpu, mag)
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
 
@@ -607,8 +612,8 @@ def test_irfft_wrappers_refuse_mixed_devices_and_dtypes(device):
 
 def test_block_step_streams_launches_each_kernel_once(device):
     """One streaming block at K = 1 (one full-width image per stem): K1,
-    the packed U-Net and K8 once each, K3 three times; the output matches
-    the same block step on CPU tensors."""
+    the packed U-Net and the streaming synthesis once each, K3 three times,
+    no K8; the output matches the same block step on CPU tensors."""
     cfg = SeparatorConfig(bin_limit=512, time_step=64, num_stems=4,
                           compute_dtype=torch.float32)
     gen = torch.Generator().manual_seed(3)
@@ -625,12 +630,71 @@ def test_block_step_streams_launches_each_kernel_once(device):
                                                cfg, 2, (0.25, 0.0))
         assert kernels.launch_counts() == {
             "stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1,
-            "head": 1, "masked_istft4096": 0, "irfft4096": 1,
-            "masked_irfft4096": 0, "mask_head": 0}
+            "head": 1, "masked_istft4096": 0, "irfft4096": 0,
+            "masked_irfft4096": 0, "mask_head": 0, "stream_synthesis4096": 1}
         ref_state, ref = stream.block_step_streams(cpu, ref_state, blocks[i], cfg,
                                                    2, (0.25, 0.0))
     assert ref.abs().max() > 0.01
     assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+def _synthesis_args(device, k, s, t, bin_limit):
+    gen = torch.Generator().manual_seed(k * 1009 + s * 101 + t * 7 + bin_limit)
+    spec2 = _spec(device, (k, 2, t), k + t + bin_limit)
+    masks2 = torch.rand((s, k, 2, t, bin_limit), generator=gen).to(device)
+    out_band = torch.tensor([0.25, 0.0, 0.25, 0.7, 0.5][:s], device=device)
+    _, ws = stream.window_tensors(1.0, device)
+    ola_tail = (torch.randn((k, s, 2, 1024), generator=gen) * 0.02).to(device)
+    return spec2, masks2, out_band, ws, ola_tail
+
+
+def _synthesis_close(args):
+    """The kernel against its plain version within _fft_close's bound, the
+    carry included; two runs bit-identical; one launch a call."""
+    got = _counted("stream_synthesis4096", stream_synthesis.stream_synthesis4096, *args)
+    ref = stream_synthesis.stream_synthesis4096_plain(*args)
+    peak = max(1.0, ref[0].abs().max().item(), ref[1].abs().max().item())
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        err = (g - r).abs().max().item()
+        assert err <= 1e-5 * peak, f"max error {err}, peak {peak}"
+    again = stream_synthesis.stream_synthesis4096(*args)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("k", [1, 3, 64])
+@pytest.mark.parametrize("t", [1, 37, 256])  # 37: a partly full last run
+@pytest.mark.parametrize("bin_limit", [1, 512, 1536, 2049])
+def test_stream_synthesis_kernel_matches_plain(device, k, t, bin_limit):
+    _synthesis_close(_synthesis_args(device, k, t=t, s=4, bin_limit=bin_limit))
+
+
+@pytest.mark.parametrize("s", [1, 2, 5])
+@pytest.mark.parametrize("run_hops,groups", [(1, 1), (5, 2), (32, 1), (300, 2)])
+def test_stream_synthesis_kernel_at_other_launch_shapes(device, monkeypatch, s,
+                                                        run_hops, groups):
+    """Stem counts other than 4, runs of one hop to more than the block,
+    and one or two groups a block with the last block partly empty."""
+    monkeypatch.setattr(stream_synthesis, "SYNTH_RUN_HOPS", run_hops)
+    monkeypatch.setattr(stream_synthesis, "SYNTH_GROUPS", groups)
+    _synthesis_close(_synthesis_args(device, 3, s, 37, 777))
+
+
+def test_stream_synthesis_refuses_bad_inputs(device):
+    """Mixed devices, a window or carry off 8-byte alignment, a wrong dtype
+    or out_band length: a ValueError before any launch."""
+    spec2, masks2, out_band, ws, ola_tail = _synthesis_args(device, 1, 2, 3, 64)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="ws is on cpu"):
+        stream_synthesis.stream_synthesis4096(spec2, masks2, out_band, ws.cpu(), ola_tail)
+    buf = torch.zeros(2049, device=device)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        stream_synthesis.stream_synthesis4096(spec2, masks2, out_band, buf[1:], ola_tail)
+    with pytest.raises(ValueError, match="float32"):
+        stream_synthesis.stream_synthesis4096(spec2, masks2.half(), out_band, ws, ola_tail)
+    with pytest.raises(ValueError, match="out_band: expected 2"):
+        stream_synthesis.stream_synthesis4096(spec2, masks2, out_band[:1], ws, ola_tail)
+    assert not any(kernels.launch_counts().values())
 
 
 # ---------------------------------------------------------------------------
