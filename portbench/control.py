@@ -10,93 +10,36 @@ and with `--faults` once a seed and fault with that fault planted in the
 program. It prints one JSON line a run: the readings and what the limits
 make of them. The benchmark's own runs never run this.
 
-Faults (`FAULTS`), each a context manager that patches the program:
-`altered` (one stem of every answer loses one 4096-sample block where the
-graph returns it; `altered_step` the same in a streaming block step),
-`half_batch` (the masks of the second half of the
-U-Net's images, tiles or streams, are dropped), `state_unchanged` (a
-streaming block step hands back the state it was given).
+The faults are the cell's family's, for the cell's driver
+(`families/<family>.py::FAULTS[driver]`), each a context manager that
+patches the program. A family that defines none for the driver runs the
+control alone.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
 import time
 
 
-@contextlib.contextmanager
-def _patched(module, name, make):
-    original = getattr(module, name)
-    setattr(module, name, make(original))
-    try:
-        yield
-    finally:
-        setattr(module, name, original)
+def faults(cell) -> dict:
+    """{fault: factory of the context manager that plants it}: the faults
+    of the cell's family on the cell's driver (none where the family
+    defines none)."""
+    from portbench import spec
+
+    return spec.family(cell.config).FAULTS.get(cell.driver, {})
 
 
-def _altered(fn):
-    def wrapper(*args, **kwargs):
-        stems = fn(*args, **kwargs)
-        first = next(iter(stems))
-        x = stems[first].clone()
-        x[..., x.shape[-1] // 2 : x.shape[-1] // 2 + 4096] = 0.0
-        return {**stems, first: x}
-
-    return wrapper
-
-
-def _altered_step(fn):
-    def wrapper(*args, **kwargs):
-        state, out = fn(*args, **kwargs)
-        out = out.clone()
-        out[:, 0, :, out.shape[-1] // 2 : out.shape[-1] // 2 + 4096] = 0.0
-        return state, out
-
-    return wrapper
-
-
-def _half_batch(fn):
-    def wrapper(*args, **kwargs):
-        masks = fn(*args, **kwargs).clone()
-        masks[:, masks.shape[1] // 2 :] = 0.0
-        return masks
-
-    return wrapper
-
-
-def _state_unchanged(fn):
-    def wrapper(params, state, *args, **kwargs):
-        _, out = fn(params, state, *args, **kwargs)
-        return state, out
-
-    return wrapper
-
-
-def fault(name: str):
-    """A context manager that plants fault `name` in the program."""
-    from spleeterrt_tpu_torch.core import model, separate
-    from spleeterrt_tpu_torch.runtime import stream
-
-    if name == "altered":
-        return _patched(separate, "separate", _altered)
-    if name == "half_batch":
-        return _patched(model, "packed_unet_masks", _half_batch)
-    if name == "altered_step":
-        return _patched(stream, "block_step_streams", _altered_step)
-    if name == "state_unchanged":
-        return _patched(stream, "block_step_streams", _state_unchanged)
-    raise ValueError(f"unknown fault {name!r}")
-
-
-# The faults each driver's cells can have.
-FAULTS = {
-    "offline": ("altered", "half_batch"),
-    "stream": ("altered_step", "state_unchanged", "half_batch"),
-    "http": ("altered", "half_batch"),
-}
+def fault(cell, name: str):
+    """A context manager that plants fault `name` of the cell's family and
+    driver in the program."""
+    found = faults(cell)
+    if name not in found:
+        raise ValueError(f"unknown fault {name!r} for {cell.name!r}: {sorted(found)}")
+    return found[name]()
 
 
 def control_run(cell, seed: int, seconds: float, device) -> dict:
@@ -109,7 +52,7 @@ def control_run(cell, seed: int, seconds: float, device) -> dict:
 def fault_run(cell, seed: int, seconds: float, device, name: str) -> dict:
     from portbench import run
 
-    with fault(name):
+    with fault(cell, name):
         return run.measure(cell, seed, seconds, False, device, time.perf_counter())
 
 
@@ -131,10 +74,14 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     cell = spec.cell(args.workload)
+    if args.faults and not faults(cell):
+        print(f"portbench.control: no fault is defined for the family "
+              f"{spec.family_name(cell.config)!r} on the {cell.driver!r} driver; "
+              f"the control runs alone", file=sys.stderr, flush=True)
     for seed in args.seeds:
         kinds = [("control", None)]
         if args.faults:
-            kinds += [("fault", f) for f in FAULTS[cell.driver]]
+            kinds += [("fault", f) for f in faults(cell)]
         for kind, name in kinds:
             if name is None:
                 out = control_run(cell, seed, args.seconds, device)

@@ -1,18 +1,24 @@
-"""Traffic drivers: the code that a traffic mix's `driver` key names.
+"""Traffic drivers: the code that a traffic mix's `driver` key names, each
+a module `drivers/<name>.py` that `spec.driver(name)` loads by its path.
 
 A driver builds the system under test from the cell's configuration and
 the seed, warms up the shapes its traffic uses, runs a measured window, and
 afterwards judges a sample of the window's answers against the plain
-reference. `offline` and `stream` are closed loops with one caller;
-`http` is an open loop of uploads from a child process.
+reference. `offline` (any model family: weights, program, reference and
+shapes from `families/<family>.py`) and `stream` are closed loops with one
+caller; `http` is an open loop of uploads from a child process. `stream`
+and `http` run Spleeter's streaming engine and server, and refuse a
+configuration of another family at set-up.
 
-Every driver has the same surface, which run.py calls in this order:
-`setup()`, `window(seconds, spans, keep)` (more than once: the measured
-window, and in a traced run a traced one), `release()` (frees the
-program's state), `check(samples)` (the numbers compared, by name; none
-where nothing was kept, which the run counts as not correct), and
-`unit_shapes()` / `audio_per_unit`, which the metric readers use.
-`use_reference(precision)` puts the reference in the program's place
+A driver module declares `Driver` and `SMALL`, the parameters that cut its
+mixes to a size the CPU tests run in seconds. The faults its cells can have
+are the family's (`FAULTS[driver]`). Every driver has the same surface,
+which run.py calls in this order: `setup()`, `window(seconds, spans, keep)`
+(more than once: the measured window, and in a traced run a traced one),
+`release()` (frees the program's state), `check(samples)` (the numbers
+compared, by name; none where nothing was kept, which the run counts as not
+correct), and `unit_shapes()` / `audio_per_unit`, which the metric readers
+use. `use_reference(precision)` puts the reference in the program's place
 (the control, portbench/control.py).
 """
 
@@ -24,7 +30,7 @@ import time
 
 import torch
 
-from portbench import work
+from portbench import spec
 from portbench.inputs import SAMPLE_RATE
 
 
@@ -111,36 +117,12 @@ def warm_up(call, n: int, device) -> str:
             f"{n - 1} more {t3 - t2:.3f} s")
 
 
-def base_shapes(cfg: dict) -> dict:
-    """The shape variables every unit has."""
-    n = cfg["fft_size"]
-    return {
-        "T": cfg["time_step"], "F": cfg["bin_limit"], "N": n, "NB": n // 2 + 1,
-        "RFFT": work.rfft_flops(n),
-        "e": torch.finfo(getattr(torch, cfg["compute_dtype"])).bits // 8,
-    }
-
-
-def program_config(cfg: dict):
-    """The program's SeparatorConfig for a configuration file."""
-    from spleeterrt_tpu_torch.config import SeparatorConfig
-
-    return SeparatorConfig(
-        bin_limit=cfg["bin_limit"], time_step=cfg["time_step"],
-        num_stems=cfg["num_stems"], unaffected_weight=cfg["unaffected_weight"],
-        compute_dtype=getattr(torch, cfg["compute_dtype"]),
-        sigmoid=cfg["sigmoid"],
-    )
-
-
-def net_kwargs(cfg: dict, nets: dict) -> dict:
-    """The nets as `separate.separate` takes them: a stack for 4 and 5
-    stems, one net for 2."""
-    from portbench.inputs import net_list
-
-    if cfg["num_stems"] >= 4:
-        return {"stacked_params": nets}
-    return {"params": net_list(nets)[0]}
+def require_spleeter(cfg: dict, driver: str) -> None:
+    """ValueError where the configuration is not of Spleeter's family."""
+    if spec.family_name(cfg) != "spleeter":
+        raise ValueError(
+            f"the {driver} driver runs Spleeter's program only; configuration "
+            f"{cfg.get('name')!r} is of the family {spec.family_name(cfg)!r}")
 
 
 # A reading that is not a finite number (a NaN or an infinity in the

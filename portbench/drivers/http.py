@@ -10,7 +10,10 @@ Arrivals are Poisson at `rate` requests a second (above the rate the
 service answers, so the audio answered a second is the service's rate)
 and the lengths come in equal numbers; the path of arrivals and the order of lengths are drawn
 from `arrival_seed` alone, so that every seed offers the same work, and
-the run's seed draws the audio and the weights. Parameters also: `check_samples` (answers
+the run's seed draws the audio and the weights. The window runs from "go"
+to the last byte of the last answer, by the generator's monotonic clock;
+handing the kept answers back to this process is not in it. Parameters
+also: `check_samples` (answers
 kept: the first 30 s one and others drawn from the seed), `trace_seconds`.
 """
 
@@ -30,11 +33,12 @@ import torch
 
 from portbench import inputs, loadgen
 from portbench.drivers import (
-    CHECKS, NOT_FINITE, SAMPLE_RATE, Window, merge_worst, net_kwargs,
-    program_config, stem_errors,
+    CHECKS, NOT_FINITE, SAMPLE_RATE, Window, merge_worst, require_spleeter, stem_errors,
 )
+from portbench.families.spleeter import make_weights, net_kwargs, net_list, program_config
 
 JOIN_TIMEOUT_S = 600.0
+SMALL = {"clip_seconds": [2, 3], "clips_per_length": 1, "rate": 2.0, "check_samples": 2}
 
 
 def wav16(samples: np.ndarray) -> bytes:
@@ -72,10 +76,11 @@ class Driver:
         self.server = None
 
     def setup(self) -> None:
+        require_spleeter(self.cfg, "http")
         from spleeterrt_tpu_torch.runtime import server
 
         gen = torch.Generator(self.dev).manual_seed(self.seed)
-        self.nets = inputs.make_nets(self.cfg, self.cfg["nets"], gen, self.dev)
+        self.nets = make_weights(self.cfg, gen, self.dev)
         self.clips, self.bodies, self.lengths = [], [], []
         for sec, _ in itertools.product(self.p["clip_seconds"],
                                         range(self.p["clips_per_length"])):
@@ -137,8 +142,8 @@ class Driver:
             parent.recv()
             t0 = time.perf_counter()
             parent.send("go")
-            results, answers = parent.recv()
-            window_s = time.perf_counter() - t0
+            results, answers, last_byte = parent.recv()
+            window_s = last_byte - t0
         finally:
             proc.join(JOIN_TIMEOUT_S)
             if proc.is_alive():
@@ -180,7 +185,7 @@ class Driver:
         from portbench import reference
         from portbench.reference import offline
 
-        nets = inputs.net_list(self.nets)
+        nets = net_list(self.nets)
         names = ",".join(self.cfg["stem_names"])
         refs, worst = {}, {}
         with reference.fp32_exact(), torch.no_grad():
@@ -203,7 +208,7 @@ class Driver:
         from portbench import reference
         from portbench.reference import offline
 
-        nets = inputs.net_list(self.nets)
+        nets = net_list(self.nets)
         by_body = {body: i for i, body in enumerate(self.bodies)}
 
         def run(wav_bytes):

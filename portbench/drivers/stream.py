@@ -18,11 +18,14 @@ import torch
 
 from portbench import inputs
 from portbench.drivers import (
-    SAMPLE_RATE, Sampler, base_shapes, closed_loop, merge_worst,
-    program_config, stem_errors, warm_up,
+    SAMPLE_RATE, Sampler, closed_loop, merge_worst, require_spleeter, stem_errors,
+    warm_up,
 )
+from portbench.families.spleeter import base_shapes, make_weights, net_list, program_config
 
 HOP = 1024
+SMALL = {"streams": 2, "pool_blocks": 3, "warmup_steps": 6, "check_samples": 1,
+         "check_streams": 2}
 
 
 class Driver:
@@ -34,6 +37,7 @@ class Driver:
         self.replacement = None
 
     def setup(self) -> None:
+        require_spleeter(self.cfg, "stream")
         from spleeterrt_tpu_torch.runtime import stream
 
         from portbench.reference.stream import LEAD
@@ -42,7 +46,7 @@ class Driver:
             raise ValueError(f"warmup_steps must be at least {LEAD}")
         self.stream = stream
         gen = torch.Generator(self.dev).manual_seed(self.seed)
-        self.nets = inputs.make_nets(self.cfg, self.cfg["nets"], gen, self.dev)
+        self.nets = make_weights(self.cfg, gen, self.dev)
         self.pcfg = program_config(self.cfg)
         pool = self.p["pool_blocks"]
         self.pool = inputs.tones_plus_noise(
@@ -88,7 +92,7 @@ class Driver:
         from portbench import reference
         from portbench.reference import stream as ref
 
-        nets = inputs.net_list(self.nets)
+        nets = net_list(self.nets)
         rng = random.Random(self.seed)
         worst = {}
         with reference.fp32_exact(), torch.no_grad():
@@ -106,7 +110,7 @@ class Driver:
         from portbench import reference
         from portbench.reference import stream as ref
 
-        nets = inputs.net_list(self.nets)
+        nets = net_list(self.nets)
         driver = self
 
         class Step:

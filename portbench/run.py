@@ -29,7 +29,6 @@ _START = time.perf_counter()
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -106,8 +105,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, start: float,
     from portbench.trace import DeviceTrace, Spans
 
     bench = spec.benchmark()
-    driver = importlib.import_module(f"portbench.drivers.{cell.driver}").Driver(
-        cell, seed, device)
+    driver = spec.driver(cell.driver).Driver(cell, seed, device)
     try:
         ready = time.perf_counter()
         driver.setup()

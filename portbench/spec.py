@@ -1,10 +1,13 @@
 """Finding the benchmark's pieces by name: BENCHMARK.json at the root of the
 checkout, and the files of this folder.
 
-- a configuration: `configs/<name>.json`;
-- a traffic mix: `traffic/<name>.json`, whose `driver` names the code in
-  `drivers/` that generates it (`offline`, `stream` or `http`) and whose
-  other keys are that driver's parameters;
+- a configuration: `configs/<name>.json`; its `family` key (`spleeter`
+  where absent) names the module `families/<family>.py` that makes its
+  weights, calls the program, computes the plain reference and plants the
+  faults the check has to catch;
+- a traffic mix: `traffic/<name>.json`, whose `driver` names the module
+  `drivers/<driver>.py` that generates it and whose other keys are that
+  driver's parameters;
 - a cell: `workloads/<name>.json`, with its config, traffic, chips and why
   as BENCHMARK.json has them, `params` that override the mix's for this
   cell, and `checks`: the limit of each number its correctness check
@@ -77,14 +80,40 @@ def stages() -> dict[str, dict]:
     return found
 
 
+# One module object a file for every load through here, so that a fault
+# planted in a family's module is the one its driver calls.
+_loaded: dict[Path, object] = {}
+
+
+def _module(folder: str, name: str):
+    """`<folder>/<name>.py` under HERE, loaded by its path."""
+    path = HERE / folder / f"{name}.py"
+    if path not in _loaded:
+        mod_spec = importlib.util.spec_from_file_location(
+            f"portbench.{folder}.{name.replace('.', '_')}", path)
+        mod = importlib.util.module_from_spec(mod_spec)
+        mod_spec.loader.exec_module(mod)
+        _loaded[path] = mod
+    return _loaded[path]
+
+
+def family_name(cfg: dict) -> str:
+    return cfg.get("family", "spleeter")
+
+
+def family(cfg: dict):
+    """The module families/<family>.py of a configuration."""
+    return _module("families", family_name(cfg))
+
+
+def driver(name: str):
+    """The module drivers/<name>.py: its `Driver` and `SMALL`."""
+    return _module("drivers", name)
+
+
 def metric_reader(name: str):
     """The `read` function of metrics/<name>.py."""
-    path = HERE / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"portbench.metrics.{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return _module("metrics", name).read
 
 
 def cell_metrics(bench: dict, cell_name: str, trace: bool) -> list[dict]:

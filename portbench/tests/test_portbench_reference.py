@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from portbench import inputs
+from portbench.families import spleeter
 from portbench.reference import offline, stream as ref_stream
 
 from conftest import small
@@ -20,11 +21,10 @@ def _fp32(cfg: dict) -> dict:
 
 
 def _program_offline(cfg, nets, audio):
-    from portbench.drivers import net_kwargs, program_config
     from spleeterrt_tpu_torch.core import separate
 
-    stems = separate.separate(audio, cfg=program_config(cfg), device="cpu",
-                              **net_kwargs(cfg, nets))
+    stems = separate.separate(audio, cfg=spleeter.program_config(cfg), device="cpu",
+                              **spleeter.net_kwargs(cfg, nets))
     return torch.stack([stems[s] for s in cfg["stem_names"]])
 
 
@@ -32,9 +32,9 @@ def _program_offline(cfg, nets, audio):
 def test_offline_matches_program(cell):
     cfg = _fp32(small(cell).config)
     gen = torch.Generator().manual_seed(7)
-    nets = inputs.make_nets(cfg, cfg["nets"], gen, "cpu")
+    nets = spleeter.make_nets(cfg, cfg["nets"], gen, "cpu")
     audio = inputs.tones_plus_noise(1, 2 * 44100 + 123, gen, "cpu")[0]
-    got = offline.separate(audio, inputs.net_list(nets), cfg)
+    got = offline.separate(audio, spleeter.net_list(nets), cfg)
     want = _program_offline(cfg, nets, audio)
     assert got.shape == want.shape == (len(cfg["stem_names"]), 2, audio.shape[-1])
     err = (got - want).abs().max() / want.abs().max()
@@ -44,29 +44,28 @@ def test_offline_matches_program(cell):
 def test_two_stem_residual_conserves_the_input():
     cfg = small("exe2-track300").config
     gen = torch.Generator().manual_seed(3)
-    nets = inputs.make_nets(cfg, 1, gen, "cpu")
+    nets = spleeter.make_nets(cfg, 1, gen, "cpu")
     audio = inputs.tones_plus_noise(1, 44100, gen, "cpu")[0]
-    vocals, acc = offline.separate(audio, inputs.net_list(nets), cfg)
+    vocals, acc = offline.separate(audio, spleeter.net_list(nets), cfg)
     assert (vocals + acc - audio).abs().max() < 1e-5
 
 
 def test_stream_matches_program_block_by_block():
-    from portbench.drivers import program_config
     from spleeterrt_tpu_torch.runtime import stream
 
     cfg = _fp32(small("vst4-stream64").config)
     gen = torch.Generator().manual_seed(5)
-    nets = inputs.make_nets(cfg, cfg["nets"], gen, "cpu")
+    nets = spleeter.make_nets(cfg, cfg["nets"], gen, "cpu")
     t = cfg["time_step"]
     blocks = inputs.tones_plus_noise(7, t * 1024, gen, "cpu")
-    pcfg = program_config(cfg)
+    pcfg = spleeter.program_config(cfg)
     state = stream.init_state_streams(pcfg, 4, 1, "cpu")
     want = []
     for b in blocks:
         state, out = stream.block_step_streams(nets, state, b[None], pcfg, 4,
                                                tuple(cfg["out_band"]))
         want.append(out[0])
-    got = ref_stream.run(list(blocks), inputs.net_list(nets), cfg)
+    got = ref_stream.run(list(blocks), spleeter.net_list(nets), cfg)
     for n, (g, w) in enumerate(zip(got, want)):
         err = (g - w).abs().max() / max(w.abs().max(), 1e-3)
         assert err < 1e-4, (n, err)
@@ -77,7 +76,7 @@ def test_stream_output_at_restarts_from_silence():
     output of the whole stream: the carry reaches no further."""
     cfg = small("vst4-stream64").config
     gen = torch.Generator().manual_seed(9)
-    nets = inputs.net_list(inputs.make_nets(cfg, 4, gen, "cpu"))
+    nets = spleeter.net_list(spleeter.make_nets(cfg, 4, gen, "cpu"))
     blocks = inputs.tones_plus_noise(ref_stream.LEAD + 4, cfg["time_step"] * 1024,
                                      gen, "cpu")
     whole = ref_stream.run(list(blocks), nets, cfg)
@@ -97,9 +96,9 @@ def test_fp8_control_rounds_to_eight_bits():
 
 def test_weights_follow_the_ladder_and_the_seed():
     cfg = small("vst4-track300").config
-    a = inputs.make_nets(cfg, 4, torch.Generator().manual_seed(1), "cpu")
-    b = inputs.make_nets(cfg, 4, torch.Generator().manual_seed(1), "cpu")
-    c = inputs.make_nets(cfg, 4, torch.Generator().manual_seed(2), "cpu")
+    a = spleeter.make_nets(cfg, 4, torch.Generator().manual_seed(1), "cpu")
+    b = spleeter.make_nets(cfg, 4, torch.Generator().manual_seed(1), "cpu")
+    c = spleeter.make_nets(cfg, 4, torch.Generator().manual_seed(2), "cpu")
     assert a["down1"]["w"].shape == (4, 16, 2, 5, 5)
     assert a["up1"]["w"].shape == (4, 512, 256, 5, 5)
     assert a["up7"]["w"].shape == (4, 2, 1, 4, 4)

@@ -34,18 +34,33 @@ def test_every_cell_file_agrees_with_benchmark_json(bench):
         for key in ("config", "traffic", "chips", "why"):
             assert cell_file[key] == w[key], (w["name"], key)
         cell = spec.cell(w["name"])
-        assert cell.driver in ("offline", "stream", "http")
+        driver = spec.driver(cell.driver)
+        assert hasattr(driver, "Driver") and isinstance(driver.SMALL, dict), cell.driver
         assert cell.checks and all(v > 0 for v in cell.checks.values())
         cfg = configs[w["config"]]
         assert cfg["file"] == f"portbench/configs/{w['config']}.json"
         assert spec.config(w["config"])["name"] == w["config"]
 
 
-def test_every_config_is_used_and_cut_nothing(bench):
+FAMILY_SURFACE = ("make_weights", "program", "reference", "unit_shapes", "unit_flops",
+                  "FAULTS", "small_config")
+
+
+def test_every_config_is_used_and_states_what_it_cut(bench):
+    """Each configuration is used by a cell, its family module has the whole
+    surface, and each key in `reduced` has its published value in the
+    file's `published`, beside the `deployment` the cut stands for."""
     used = {w["config"] for w in bench["workloads"]}
     for c in bench["configs"]:
-        assert c["name"] in used and c["reduced"] == []
+        assert c["name"] in used
         assert (spec.ROOT / c["file"]).is_file()
+        cfg = spec.config(c["name"])
+        family = spec.family(cfg)
+        assert all(hasattr(family, a) for a in FAMILY_SURFACE), spec.family_name(cfg)
+        assert all(callable(f) for fs in family.FAULTS.values() for f in fs.values())
+        if c["reduced"]:
+            assert set(c["reduced"]) <= set(cfg.get("published", {})), c["name"]
+            assert isinstance(cfg.get("deployment"), str) and cfg["deployment"], c["name"]
 
 
 def test_every_metric_has_a_reader_and_its_cells_report_what_it_moves(bench):

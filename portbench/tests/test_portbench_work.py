@@ -7,6 +7,7 @@ import torch
 
 from portbench import spec, work
 from portbench.drivers import offline, stream
+from portbench.families import spleeter
 
 
 def test_unet_flops_by_hand():
@@ -20,7 +21,7 @@ def test_unet_flops_by_hand():
     for k, (cin, cout) in enumerate(dec):
         want += 2 * (t >> (6 - k)) * (f >> (6 - k)) * 25 * cin * cout
     want += 2 * t * f * 2 * 16
-    assert work.unet_flops_per_image(cfg, t, f) == want
+    assert spleeter.unet_flops_per_image(cfg, t, f) == want
 
 
 def test_rfft_flops():
@@ -67,9 +68,9 @@ def test_stage_bounds_by_hand():
 def test_unit_flops_of_the_cells():
     cfg = spec.config("spleeter-4stems-vst")
     sh = _shapes("vst4-track300")
-    want = 204 * work.unet_flops_per_image(cfg, 256, 1536) + (
+    want = 204 * spleeter.unet_flops_per_image(cfg, 256, 1536) + (
         2 * 12925 + 4 * 2 * 12928) * work.rfft_flops(4096)
-    assert work.unit_flops(cfg, sh) == want
+    assert spleeter.unit_flops(cfg, sh) == want
     assert 1.8e12 < want < 1.95e12
 
 

@@ -1,14 +1,12 @@
-"""The yardstick's arithmetic: the card's peaks, the useful operations of a
-unit of work, and the stage files' formulas.
+"""The yardstick's arithmetic: the card's peaks, the operations of a real
+FFT, and the stage files' formulas. A unit's useful operations are its
+model family's (`families/<family>.py::unit_flops`).
 
 Peaks: NVIDIA H100 SXM data sheet, dense rates, at the full 700 W limit.
-Operations: a convolution's multiply-adds times 2 from its shapes (a
-transposed 5x5 stride-2 convolution drives 25 taps from every input
-position), and 2.5 N log2 N for a real FFT of N points, the count of a true
-FFT. The U-Net count restates the JAX-era `bench.py::_unet_flops_per_tile`
-and `_pipeline_flops`; the per-kernel bytes and operations of the stage
-files restate `chip_smoke.py::kernel_work` (each input read once, each
-output written once).
+2.5 N log2 N for a real FFT of N points, the count of a true FFT. The
+per-kernel bytes and operations of the stage files restate
+`chip_smoke.py::kernel_work` (each input read once, each output written
+once).
 """
 
 from __future__ import annotations
@@ -22,30 +20,8 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 MFU_PEAK_OPS_PER_S = PEAK_OPS_PER_S["bfloat16"]
 
 
-def unet_flops_per_image(cfg: dict, t: int, f: int) -> float:
-    """Multiply-adds x 2 of one net over one (t, f) image."""
-    total = 0.0
-    th, fh = t, f
-    for cin, cout in cfg["encoder_channels"]:
-        th, fh = th // 2, fh // 2
-        total += 2.0 * th * fh * cout * 25 * cin
-    for cin, cout in cfg["decoder_channels"]:
-        total += 2.0 * th * fh * cin * 25 * cout
-        th, fh = th * 2, fh * 2
-    cin, cout = cfg["final_channels"]
-    return total + 2.0 * t * f * cout * cin * 16
-
-
 def rfft_flops(n: int) -> float:
     return 2.5 * n * math.log2(n)
-
-
-def unit_flops(cfg: dict, shapes: dict) -> float:
-    """Useful operations of one unit (a call or a block step): every net
-    over every image, each forward and inverse real FFT."""
-    unet = shapes["images"] * unet_flops_per_image(cfg, shapes["T"], shapes["F"])
-    ffts = shapes["forward_ffts"] + shapes["inverse_ffts"]
-    return unet + ffts * rfft_flops(cfg["fft_size"])
 
 
 # The formulas of a stage file: numbers, names of shape variables, + - * /
