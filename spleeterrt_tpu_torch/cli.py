@@ -11,6 +11,12 @@ Stem file naming matches the reference (`<name>_Vocal.wav`,
 `<name>_Accompaniment.wav`, `<name>_Drum.wav`, Executable/main.c:812-965)
 plus `<name>_Bass.wav`, `<name>_Piano.wav` and `<name>_Other.wav` for the 4-
 and 5-stem graphs.
+
+`--arch bs-roformer` runs BS-RoFormer (core/roformer.py) at its published
+widths instead of Spleeter's U-Net: `<name>_Vocal.wav` and
+`<name>_Instrumental.wav`, weights random from `--seed` or a file of
+`checkpoint.save_params`; `--stems`, `--time-step` and `--bin-limit` do not
+apply to it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ STEM_FILENAMES = {
     "bass": "Bass",
     "piano": "Piano",
     "other": "Other",
+    "instrumental": "Instrumental",
 }
 
 
@@ -40,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("audio", help="input audio file (WAV, FLAC; MP3 via "
                                  "libmpg123, soundfile or ffmpeg)")
+    p.add_argument("--arch", default="spleeter", choices=("spleeter", "bs-roformer"),
+                   help="the model: Spleeter's U-Net (default) or BS-RoFormer "
+                        "(vocals and instrumental)")
     p.add_argument("--stems", type=int, default=2, choices=(2, 3, 4, 5))
     p.add_argument("--time-step", type=int, default=512,
                    help="spectrogram tile height in frames (default 512)")
@@ -48,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights", default=None,
                    help="weights source: quantized 2-subnet model file "
                         "(2/3 stems), a directory with the four VST .dat "
-                        "blobs (4 stems), or an npz checkpoint (2 stems)")
+                        "blobs (4 stems), or an npz checkpoint (2 stems); "
+                        "with --arch bs-roformer a checkpoint.save_params file")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights (smoke/benchmark; model.7z is not "
                         "distributable)")
@@ -136,11 +147,26 @@ def load_weights(src, random_weights: bool, seed: int, cfg, device) -> dict:
     return {"stacked_params": weights.stack_params(ps)}
 
 
+def load_roformer(src, random_weights: bool, seed: int, cfg, device) -> dict:
+    """BS-RoFormer's weights on `device` as keyword arguments of
+    separate.separate: random from `seed`, or a checkpoint.save_params
+    file."""
+    from spleeterrt_tpu_torch.core import checkpoint, roformer
+
+    if random_weights or src is None:
+        if not random_weights:
+            print("no --weights given; using random weights")
+        gen = torch.Generator().manual_seed(seed)
+        return {"params": {k: v.to(device) for k, v in
+                           roformer.init_params(cfg, gen).items()}}
+    return {"params": checkpoint.load_roformer_params(src, cfg, device)}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _clamp_args(args)
 
-    from spleeterrt_tpu_torch.config import SeparatorConfig
+    from spleeterrt_tpu_torch.config import RoformerConfig, SeparatorConfig
     from spleeterrt_tpu_torch.core import separate
     from spleeterrt_tpu_torch.io import audio as audio_io, resample
     from spleeterrt_tpu_torch.utils.timing import profiler_trace
@@ -152,12 +178,16 @@ def main(argv=None) -> int:
         audio_io.check_decodable(args.audio)
     except audio_io.UnsupportedFormatError as e:
         raise SystemExit(str(e))
-    cfg = SeparatorConfig(
-        bin_limit=args.bin_limit,
-        time_step=args.time_step,
-        num_stems=args.stems,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-    )
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.arch == "bs-roformer":
+        cfg = RoformerConfig(compute_dtype=dtype)
+    else:
+        cfg = SeparatorConfig(
+            bin_limit=args.bin_limit,
+            time_step=args.time_step,
+            num_stems=args.stems,
+            compute_dtype=dtype,
+        )
     device = open_device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"spleeterrt-tpu-torch: device {device} ({name})")
@@ -177,8 +207,8 @@ def main(argv=None) -> int:
     print(f"Audio load + resample: {time.perf_counter() - t0:.3f} s "
           f"({samples.shape[1] / 44100.0:.1f} s of audio)")
 
-    nets = load_weights(args.weights, args.random_weights, args.seed, cfg,
-                        device)
+    load = load_roformer if args.arch == "bs-roformer" else load_weights
+    nets = load(args.weights, args.random_weights, args.seed, cfg, device)
 
     with profiler_trace(args.profile):
         t0 = time.perf_counter()
@@ -186,7 +216,7 @@ def main(argv=None) -> int:
         stems = {k: v.cpu().numpy() for k, v in stems.items()}
         dt = time.perf_counter() - t0
     rtf = samples.shape[1] / 44100.0 / dt
-    print(f"Separation ({cfg.num_stems} stems): {dt:.3f} s "
+    print(f"Separation ({len(stems)} stems): {dt:.3f} s "
           f"({rtf:.1f}x real time, includes the kernel build on first use)")
 
     if args.output_rate == "input":

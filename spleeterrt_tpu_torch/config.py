@@ -5,6 +5,12 @@ The reference hard-codes the transform constants at compile time
 HALFWNDLEN=2049) and passes (timeStep, analyseBinLimit, stems) on the CLI
 (Executable/main.c:704-748). Here both live in frozen dataclasses; the
 U-Net compute dtype is a torch dtype.
+
+`RoformerConfig` is the other architecture the offline path runs:
+BS-RoFormer (Lu et al., arXiv:2309.02612; core/roformer.py), at the widths
+of the public implementation (github.com/lucidrains/BS-RoFormer) and of the
+public vocal checkpoint's config (ZFTurbo's Music-Source-Separation-Training,
+configs/viperx/model_bs_roformer_ep_317_sdr_12.9755.yaml).
 """
 
 from __future__ import annotations
@@ -104,3 +110,71 @@ class SeparatorConfig:
     @property
     def stem_names(self) -> tuple[str, ...]:
         return {2: STEMS_2, 3: STEMS_3, 4: STEMS_4, 5: STEMS_5}[self.num_stems]
+
+
+# BS-RoFormer's band split of the 1025 bins of a 2048-point STFT: 62 bands
+# (configs/viperx/model_bs_roformer_ep_317_sdr_12.9755.yaml).
+ROFORMER_BANDS = ((2,) * 24 + (4,) * 12 + (12,) * 8 + (24,) * 8 + (48,) * 8
+                  + (128, 129))
+
+
+@dataclasses.dataclass(frozen=True)
+class RoformerConfig:
+    """BS-RoFormer (core/roformer.py): a band split of the stereo complex
+    STFT, `depth` blocks of a RoPE transformer over time then one over
+    bands, per-band GLU mask estimators, complex masks; whole tracks in
+    `chunk`-sample chunks overlapped `num_overlap` times. The first stem
+    is masked, `residual_stem` is the input minus it in time."""
+
+    dim: int = 512
+    depth: int = 12
+    heads: int = 8
+    dim_head: int = 64
+    ff_mult: int = 4
+    mask_hidden_mult: int = 4
+    mask_depth: int = 2
+    freqs_per_bands: tuple[int, ...] = ROFORMER_BANDS
+    n_fft: int = 2048
+    hop: int = 441
+    win: int = 2048  # Hann, periodic
+    rope_theta: float = 10000.0
+    chunk: int = 352800  # 8 s at 44.1 kHz
+    num_overlap: int = 2
+    # Chunks through the net at once (chosen by a sweep on the H100).
+    batch: int = 16
+    stems: tuple[str, ...] = ("vocals",)
+    residual_stem: str | None = "instrumental"
+    audio_channels: int = 2
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if sum(self.freqs_per_bands) != self.n_fft // 2 + 1:
+            raise ValueError(f"the bands cover {sum(self.freqs_per_bands)} "
+                             f"bins, the STFT has {self.n_fft // 2 + 1}")
+        if self.mask_depth != 2:
+            raise ValueError("mask_depth must be 2 (one hidden layer)")
+        if self.num_overlap < 2 or self.chunk % self.num_overlap:
+            raise ValueError("num_overlap must be >= 2 and divide chunk")
+        if self.chunk // 10 > self.chunk // self.num_overlap:
+            raise ValueError("the fades (chunk / 10) are longer than a step")
+        if self.dim_head % 2 or self.batch < 1:
+            raise ValueError("dim_head must be even and batch >= 1")
+
+    @property
+    def stem_names(self) -> tuple[str, ...]:
+        tail = (self.residual_stem,) if self.residual_stem else ()
+        return tuple(self.stems) + tail
+
+    @property
+    def step(self) -> int:
+        return self.chunk // self.num_overlap
+
+
+def require_spleeter(cfg, where: str) -> None:
+    """ValueError where `cfg` is not a Spleeter configuration: `where` (the
+    streaming engine, the server, training, the mesh) runs Spleeter's U-Net
+    only."""
+    if isinstance(cfg, RoformerConfig):
+        raise ValueError(
+            f"{where} runs Spleeter's U-Net only; a RoformerConfig runs "
+            f"through core/separate.py::separate (offline)")

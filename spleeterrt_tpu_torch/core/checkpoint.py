@@ -16,6 +16,11 @@ file; `restore` gives each rank its stem group's slice of what the file
 holds. So a run saved at one world size resumes at another, bit for bit.
 Both are collective in a sharded run, and every rank must see the
 checkpoint's directory.
+
+BS-RoFormer's weights (core/roformer.py) are one flat dict of named
+tensors; `save_params` writes them as one `torch.save` file and
+`load_roformer_params` reads one back onto a device, each name and shape
+checked against the configuration's `param_shapes`.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from spleeterrt_tpu_torch.core import weights
+from spleeterrt_tpu_torch.core import roformer, weights
 from spleeterrt_tpu_torch.core.model import Params, num_stems
 from spleeterrt_tpu_torch.core.train import (
     ADAM_BETAS,
@@ -180,3 +185,27 @@ def train_state_from_jax(
         params=p, optimizer=opt, step=int(step),
         ema_params=None if ema is None else to_dev(stacked_from_jax(ema)),
     )
+
+
+def save_params(path: str | os.PathLike, params: dict[str, torch.Tensor]) -> None:
+    """Write a flat dict of named tensors (BS-RoFormer's weights) to one
+    file, on the host."""
+    torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
+
+
+def load_roformer_params(path: str | os.PathLike, cfg,
+                         device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+    """BS-RoFormer's weights from a `save_params` file, float32 on
+    `device`; ValueError where a name or a shape differs from
+    `roformer.param_shapes(cfg)`."""
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    want = roformer.param_shapes(cfg)
+    if set(data) != set(want):
+        missing, extra = sorted(set(want) - set(data)), sorted(set(data) - set(want))
+        raise ValueError(f"{path}: not BS-RoFormer weights of this configuration "
+                         f"(missing {missing[:3]}, unexpected {extra[:3]})")
+    for name, shape in want.items():
+        if tuple(data[name].shape) != shape:
+            raise ValueError(f"{path}: {name} is {tuple(data[name].shape)}, "
+                             f"the configuration's is {shape}")
+    return {k: data[k].to(device, torch.float32) for k in want}

@@ -47,8 +47,13 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from spleeterrt_tpu_torch.config import STEM_MODE_2, STEM_MODE_4, SeparatorConfig
-from spleeterrt_tpu_torch.core import transform
+from spleeterrt_tpu_torch.config import (
+    STEM_MODE_2,
+    STEM_MODE_4,
+    RoformerConfig,
+    SeparatorConfig,
+)
+from spleeterrt_tpu_torch.core import roformer, transform
 from spleeterrt_tpu_torch.core.model import (
     Params,
     multi_stem_masks,
@@ -401,6 +406,25 @@ def separate_4stem(
     return separate_nstem(stacked_params, audio, cfg, OUT_BAND_4)
 
 
+def _separate_roformer(audio: torch.Tensor, params: Params, cfg: RoformerConfig,
+                       sp) -> dict[str, torch.Tensor]:
+    """BS-RoFormer's graph: the chunked model (core/roformer.py) gives the
+    masked stems over the padded track, cropped to the input; the residual
+    stem is the input minus the first, as the 2-stem graph's
+    accompaniment."""
+    n = audio.shape[-1]
+    sp.note(arch="bs-roformer", stems=len(cfg.stem_names), samples=n)
+    masked = roformer.separate_roformer(audio, params, cfg)
+    with span("graph.crop"):
+        start = roformer.border(n, cfg)
+        masked = masked[..., start : start + n]
+    stems = dict(zip(cfg.stems, masked))
+    if cfg.residual_stem:
+        with span("graph.residual"):
+            stems[cfg.residual_stem] = _residual(audio, masked[0])
+    return stems
+
+
 def separate(
     audio,
     *,
@@ -408,7 +432,7 @@ def separate(
     params4: Params | None = None,
     params2: Params | None = None,
     stacked_params: Params | None = None,
-    cfg: SeparatorConfig,
+    cfg: SeparatorConfig | RoformerConfig,
     device: torch.device | str = "cuda",
 ) -> dict[str, torch.Tensor]:
     """High-level entry: pad, run the stem graph for cfg.num_stems, crop.
@@ -416,11 +440,12 @@ def separate(
     `audio` is (2, n) or (n,) float32 at 44.1 kHz (array or tensor). The
     nets, already on `device`, are `params` for 2 stems, `params4` and
     `params2` for 3, and `stacked_params` (a leading stem axis) for 4 and
-    5. Returns {stem_name: (2, n) tensor on `device`}.
+    5. A `RoformerConfig` runs BS-RoFormer (core/roformer.py) with its
+    weights in `params`. Returns {stem_name: (2, n) tensor on `device`}.
 
-    The call is one span `graph.separate` (attributes `stems`, `samples`)
-    around `graph.pad`, the graph's kernel and U-Net spans, and
-    `graph.crop`.
+    The call is one span `graph.separate` (attributes `stems`, `samples`,
+    and on BS-RoFormer's calls `arch`) around `graph.pad`, the graph's
+    kernel and model spans, and `graph.crop`.
     """
     with span("graph.separate") as sp:
         with span("graph.pad"):
@@ -428,8 +453,11 @@ def separate(
             if audio.ndim == 1:
                 audio = torch.stack([audio, audio])
             n = audio.shape[-1]
-            preshift, _ = transform.offline_pad_sizes(n, cfg.transform)
-            padded = transform.pad_offline(audio, cfg.transform).contiguous()
+            if not isinstance(cfg, RoformerConfig):
+                preshift, _ = transform.offline_pad_sizes(n, cfg.transform)
+                padded = transform.pad_offline(audio, cfg.transform).contiguous()
+        if isinstance(cfg, RoformerConfig):
+            return _separate_roformer(audio, params, cfg, sp)
         sp.note(stems=cfg.num_stems, samples=n)
         if cfg.num_stems == 2:
             stems = separate_2stem(params, padded, cfg)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from spleeterrt_tpu_torch.config import STEM_MODE_4
+from spleeterrt_tpu_torch.config import STEM_MODE_4, require_spleeter
 from spleeterrt_tpu_torch.core import separate, transform
 from spleeterrt_tpu_torch.core.model import Params, multi_stem_masks, num_stems
 from spleeterrt_tpu_torch.parallel.distributed import all_gather_cat, all_reduce_
@@ -222,6 +222,7 @@ def evaluate_si_sdr(
     (plus 'mean'). `trained_scale` folds the training input scale into the
     nets first (:func:`deploy_params`); False evaluates them as given.
     `out_band` weights each stem's bins from bin_limit up (default 0)."""
+    require_spleeter(cfg, "training's evaluation")
     names = tuple(dataset.stem_names)
     params = (
         deploy_params(stacked_params, cfg.transform.fft_size)

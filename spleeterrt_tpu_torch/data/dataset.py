@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spleeterrt_tpu_torch.config import SeparatorConfig
+from spleeterrt_tpu_torch.config import SeparatorConfig, require_spleeter
 from spleeterrt_tpu_torch.core import transform
 from spleeterrt_tpu_torch.io import audio as audio_io, resample
 
@@ -270,6 +270,7 @@ def batches(
     (mix_mag (B,T,F,2), target_mags (S,B,T,F,2), active (S,B))."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
+    require_spleeter(cfg, "training's data loop")
     crop = crop_samples(cfg)
     i = 0
     while steps is None or i < steps:

@@ -38,7 +38,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig
+from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig, require_spleeter
 from spleeterrt_tpu_torch.core import separate
 from spleeterrt_tpu_torch.core.model import Params, multi_stem_masks, num_stems
 from spleeterrt_tpu_torch.parallel.distributed import all_gather_cat, rank_device
@@ -154,6 +154,7 @@ def compute_masks_sharded(
     """Multi-stem masks with tiles over "data" and stems over "stem"
     (separate.compute_masks_multi through `sharded_unet`): (S, 2,
     n_frames, bin_limit) on every rank. Collective."""
+    require_spleeter(cfg, "the mesh")
     return separate.compute_masks_multi(stacked_params, spec, cfg, stem_mode,
                                         sharded_unet(mesh))
 
@@ -169,6 +170,7 @@ def separate_4stem_sharded(
     each rank's stems x tiles through the packed U-Net (K2-K6), the masks
     gathered, K7 on every rank; at other hops of a 4096-point FFT K9 in
     place of K7. Returns (4, 2, out_len) on every rank. Collective."""
+    require_spleeter(cfg, "the mesh")
     return separate.separate_nstem(stacked_params, audio, cfg,
                                    separate.OUT_BAND_4, sharded_unet(mesh))
 
@@ -203,6 +205,7 @@ def make_batch_fn(cfg: SeparatorConfig, mesh: DeviceMesh, n_stems: int):
     rank running separate.separate_nstem_batch (one K1, one U-Net pass, one
     K7) on its tracks, the stems gathered on every rank. Tracks are
     independent, so nothing else crosses ranks."""
+    require_spleeter(cfg, "the mesh")
     if n_stems not in (4, 5):
         # The per-stem out-of-band weights are a property of the stem
         # family, not the count: a 2-net stack is not the 2-stem offline
@@ -221,6 +224,7 @@ def make_batch2_fn(cfg: SeparatorConfig, mesh: DeviceMesh):
     """(fn, n_ranks): fn(params, tracks) -> (B, 2, 2ch, out_len), the
     single-net 2-stem offline graph (Executable/main.c:779-808) with the
     tracks spread over the flattened mesh."""
+    require_spleeter(cfg, "the mesh")
     return _over_ranks(mesh, lambda p, tracks: separate.separate_2stem_batch(
         p, tracks, cfg))
 
@@ -229,6 +233,7 @@ def make_batch3_fn(cfg: SeparatorConfig, mesh: DeviceMesh):
     """(fn, n_ranks): fn(params4, params2, tracks) -> (B, 3, 2ch, out_len),
     the two-pass 3-stem graph (Executable/main.c:845-970) with the tracks
     spread over the flattened mesh."""
+    require_spleeter(cfg, "the mesh")
     return _over_ranks(mesh, lambda p4, p2, tracks: separate.separate_3stem_batch(
         p4, p2, tracks, cfg))
 
@@ -286,6 +291,7 @@ def compute_masks_sharded_single(
     (the frame-block data parallelism of the 2- and 3-stem graphs,
     Executable/main.c:779-970): (2, n_frames, bin_limit) on every rank.
     Collective."""
+    require_spleeter(cfg, "the mesh")
     return separate.compute_masks(params, spec, cfg, stem_mode,
                                   sharded_unet(mesh, stems_over_mesh=False))
 
@@ -299,6 +305,7 @@ def separate_2stem_sharded(
     """The 2-stem graph (separate.separate_2stem: vocals through the masked
     iSTFT, accompaniment = input - vocals in time) with its tiles spread
     over every rank -> (2, 2ch, out_len) on every rank. Collective."""
+    require_spleeter(cfg, "the mesh")
     return separate.separate_2stem(params, audio, cfg,
                                    sharded_unet(mesh, stems_over_mesh=False))
 
@@ -314,6 +321,7 @@ def separate_3stem_sharded(
     domain residual of pass 1 feeds pass 2) with the tiles of both passes
     spread over every rank -> (3, 2ch, out_len) = (drums, vocals,
     accompaniment) on every rank. Collective."""
+    require_spleeter(cfg, "the mesh")
     return separate.separate_3stem(params4, params2, audio, cfg,
                                    sharded_unet(mesh, stems_over_mesh=False))
 
@@ -332,6 +340,7 @@ def make_stream_fn(cfg: SeparatorConfig, mesh: DeviceMesh, n_stems: int = 4,
     reference's. Each rank runs stream.block_step_streams (K1, the U-Net,
     the streaming synthesis) on its streams; `out_blocks` (K, S, 2, T * HOP) is gathered on
     every rank. Collective."""
+    require_spleeter(cfg, "the mesh")
     if out_band is None:
         out_band = stream_mod.RT_OUT_BAND[:n_stems]
     group, n, r = _flat(mesh)
@@ -369,6 +378,7 @@ def stream_scan_sharded(
     n_blocks * T * HOP) on every rank, as stream.stream_scan. Stem counts
     that do not divide the "stem" axis pad the last groups' output with
     silence for the gather. Collective."""
+    require_spleeter(cfg, "the mesh")
     if out_band is None:
         out_band = stream_mod.RT_OUT_BAND[:n_stems]
     if len(out_band) != n_stems or num_stems(stacked_params) != n_stems:

@@ -75,6 +75,7 @@ from zlib import error as _zlib_error
 import numpy as np
 import torch
 
+from spleeterrt_tpu_torch.config import require_spleeter
 from spleeterrt_tpu_torch.core import separate, transform
 from spleeterrt_tpu_torch.io import audio as audio_io, resample
 from spleeterrt_tpu_torch.parallel import distributed
@@ -112,6 +113,7 @@ class SeparationService:
 
     def __init__(self, cfg, weight_kwargs: dict, max_body_bytes: int = 1 << 28,
                  device: torch.device | str = "cuda", mesh=None):
+        require_spleeter(cfg, "the server")
         self.cfg = cfg
         self.weight_kwargs = weight_kwargs
         self.max_body_bytes = max_body_bytes

@@ -40,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig
+from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig, require_spleeter
 from spleeterrt_tpu_torch.core.model import Params, multi_stem_masks
 from spleeterrt_tpu_torch.kernels import stft_fused
 from spleeterrt_tpu_torch.kernels.stream_synthesis import stream_synthesis4096
@@ -124,6 +124,7 @@ def init_state_streams(
     """The carry before the first block of `n_streams` streams: silence,
     and masks of 1.0 (pass-through until the first inference, as the C
     engine initializes its mask buffers, Spleeter4Stems.c:456-467)."""
+    require_spleeter(cfg, "the streaming engine")
     k, t, bl = n_streams, cfg.time_step, cfg.bin_limit
     zspec = torch.zeros((k, 2, t, N_BINS), dtype=torch.complex64, device=device)
     return StreamState(
