@@ -21,7 +21,14 @@ Phases, each of which raises (non-zero exit) on failure:
    template's registers, shared memory and occupancy); K8 on the masked
    spectrum of one streaming block of 4 streams, the streaming synthesis
    on the same block (with a carry in) and K9 at the 30 s overlap-2
-   shapes, all in float32 and each run twice (bit-identical).
+   shapes, all in float32 and each run twice (bit-identical). BS-RoFormer's
+   rotary kernel in bfloat16 at a batch-layer of the benchmark cell
+   (bsrof-vocals-track300: its time layer, 992 sequences of 801, and its
+   band layer, 12,816 of 62), held to rope.rope_qk_error's bound with at
+   least 99.9% of values bit-equal, run twice (bit-identical) and timed
+   beside its bytes bound and its plain version; then a 300 s BS-RoFormer
+   separation at the published widths, which must launch it 2 x depth
+   times a batch of chunks and no other hand kernel.
 3. The main path through the user's entry point: the CLI separates a 30 s
    synthetic WAV into 4 stems (VST config, bf16, random full-width
    weights); the launch counts must be K1, K2, K4, K5, K6, K7 once and K3
@@ -192,8 +199,9 @@ stems folded (S = 4, x = [skip1 | up5] of the plain chain), where it must
 also give K6's masks bit for bit. Phase 2's plain chain runs cuDNN's
 deterministic algorithms, so its errors repeat from run to run.
 
-The last three lines are the kernel report (all ten kernels, each with
-its launches on the path that runs it, its time beside its plain
+The last three lines are the kernel report (every hand kernel: the ten
+ports, the streaming synthesis and the rotary kernel, each with its
+launches on the path that runs it, its time beside its plain
 version's, the least time the card could take for its work, and a library
 call's time where one PyTorch call computes the same function), the
 card's nvidia-smi line and the JSON status line. Without a CUDA device
@@ -231,6 +239,7 @@ from spleeterrt_tpu_torch.config import (
     STEM_MODE_2,
     STEM_MODE_4,
     STEMS_4,
+    RoformerConfig,
     SeparatorConfig,
     TransformConfig,
 )
@@ -238,6 +247,7 @@ from spleeterrt_tpu_torch.core import (
     checkpoint,
     grouped,
     model,
+    roformer,
     separate,
     train,
     transform,
@@ -251,6 +261,7 @@ from spleeterrt_tpu_torch.kernels import (
     encoder,
     mask_head,
     pallas_fft,
+    rope,
     stft_fused,
     stream_synthesis,
     tail,
@@ -317,6 +328,10 @@ CHUNKED_SECONDS = 300.0  # the executor's track
 CHUNK_TILES = 8
 CHUNKED_MAX_ERR = 1e-5  # |chunked - monolithic|, fp32 kernels
 SERVER_BATCH_SECONDS = (10.0, 20.0, 30.0)  # /separate_batch's three tracks
+# BS-RoFormer's rotary kernel against its plain version, in bf16: each value
+# within rope.rope_qk_error's bound, and this share of them bit-equal.
+ROPE_MIN_BIT_EQUAL = 0.999
+ROFORMER_SECONDS = 300.0  # the separation that counts the rotary kernel's launches
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
 # 700 W): a kernel's bound is the larger of its bytes over the memory rate
 # and its operations over the peak rate of its operands' type (float32
@@ -337,6 +352,7 @@ KERNEL_TABLE = (
     ("masked_irfft4096", "irfft.cu", "pallas_fft.py:186"),
     ("mask_head", "head.cu", "mask_head.py:86"),
     ("stream_synthesis4096", "stream_synthesis.cu", None),  # ports no TPU kernel
+    ("rope_qk", "rope.cu", None),  # ports no TPU kernel
 )
 
 
@@ -827,6 +843,13 @@ def kernel_work(name: str, args, kw) -> tuple[float, float, torch.dtype]:
                         + 2 * stream_synthesis.SYNTH_LEN)
         out = frames * stream_synthesis.HOP * 4 + nbytes(ola_tail)
         return nbytes(*args) + out, ops, torch.float32
+    if name == "rope_qk":
+        qkvg, rot, heads = args
+        rows = qkvg.shape[0] * qkvg.shape[1]
+        cols = 2 * heads * 2 * rot.shape[1]  # q and k, read once and written once
+        # 4 multiplies and 2 adds a pair, in float32 on the FMA pipes.
+        nb = 2 * rows * cols * qkvg.element_size() + nbytes(rot)
+        return nb, rows * cols * 3, torch.float32
     if name in ("irfft4096", "masked_irfft4096"):
         spec = args[0]
         s = args[1].shape[0] if name == "masked_irfft4096" else 1
@@ -1719,6 +1742,67 @@ def phase_timing_2stem(device) -> None:
 # The serving path: K1/K7 over a batch of tracks, the batch graphs, the
 # chunked executor and the HTTP server
 # ---------------------------------------------------------------------------
+
+
+def phase_roformer(device) -> tuple[dict, int]:
+    """BS-RoFormer's rotary kernel at the shapes of a batch-layer of the
+    benchmark's cell (16 chunks of 801 frames by 62 bands, 794,592 rows of
+    the `to_qkvg` product: the time layer's 992 sequences of 801 and the
+    band layer's 12,816 of 62), each against its plain version and timed
+    beside its bound; then one 300 s separation at the published widths,
+    which must launch it 2 x depth times a batch of chunks and nothing
+    else. Returns (the time layer's report entry, the separation's
+    launches)."""
+    t0 = time.perf_counter()
+    cfg = RoformerConfig()
+    heads, width = cfg.heads, 3 * cfg.heads * cfg.dim_head + cfg.heads
+    frames, bands = cfg.chunk // cfg.hop + 1, len(cfg.freqs_per_bands)
+    entries = []
+    for label, n, length in (("time layer", cfg.batch * bands, frames),
+                             ("band layer", cfg.batch * frames, bands)):
+        gen = torch.Generator(device=device).manual_seed(SEED + length)
+        qkvg = torch.randn((n, length, width), generator=gen, device=device).to(torch.bfloat16)
+        args = (qkvg, roformer.rotary(length, cfg, device), heads)
+        got, want = rope.rope_qk(*args), rope.rope_qk_plain(*args)
+        worst, equal = rope.rope_qk_error(got, want, *args)
+        err = (got.float() - want.float()).abs().max().item()
+        same = torch.equal(got, rope.rope_qk(*args))
+        del got, want
+        log(f"[rope_qk] {label} ({n}, {length}, {width}) bf16: max |kernel - plain| = "
+            f"{err:.3e}, largest error / bound {worst:.3e}, bit-equal {100 * equal:.4f}%; "
+            f"two runs bit-identical: {same}")
+        if not (worst <= 1 and equal >= ROPE_MIN_BIT_EQUAL):
+            raise AssertionError(f"rope_qk ({label}) disagrees with its plain version")
+        if not same:
+            raise AssertionError("rope_qk is not deterministic")
+        ms = cuda_ms(lambda: rope.rope_qk(*args))
+        plain_ms = cuda_ms(lambda: rope.rope_qk_plain(*args), 5, 1)
+        bound = bound_entry([("rope_qk", args, {})])
+        log(f"[rope_qk] {label}: kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}), share {100 * bound['bound_ms'] / ms:.1f}%; plain "
+            f"(float32 copy, complex product, cast) {plain_ms:.4f} ms")
+        entries.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+                        "library_ms": None})
+        del args, qkvg
+
+    params = roformer.init_params(cfg, torch.Generator(device).manual_seed(SEED), device)
+    track = torch.from_numpy(synthetic_audio(ROFORMER_SECONDS)).to(device)
+    batches = -(-roformer.num_chunks(track.shape[-1], cfg) // cfg.batch)
+    want = {**dict.fromkeys(kernels.KERNELS, 0), "rope_qk": 2 * cfg.depth * batches}
+    kernels.reset_launch_counts()
+    stems = separate.separate(track, params=params, cfg=cfg, device=device)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    finite = all(bool(torch.isfinite(y).all()) for y in stems.values())
+    log(f"[rope_qk] BS-RoFormer {ROFORMER_SECONDS:.0f} s, {batches} batches of "
+        f"{cfg.batch} chunks: launches {launches['rope_qk']} (want 2 x {cfg.depth} x "
+        f"{batches}); stems {sorted(stems)} finite: {finite}")
+    if launches != want:
+        raise AssertionError(f"BS-RoFormer launched {launches}, want {want}")
+    if not finite:
+        raise AssertionError("BS-RoFormer's stems are not finite")
+    log(f"[rope_qk] phase done in {time.perf_counter() - t0:.3f} s")
+    return entries[0], launches["rope_qk"]
 
 
 def phase_kernels_tracks(cfg, device) -> None:
@@ -3368,6 +3452,7 @@ def main() -> int:
     phase_build()
     cfg = vst_config(torch.bfloat16)
     measured = phase_kernels(cfg, device)
+    measured["rope_qk"], rope_launches = phase_roformer(device)
     phase_kernels_tracks(cfg, device)
     with tempfile.TemporaryDirectory() as workdir:
         cli_stems, launches = phase_main_path(workdir, device)
@@ -3393,11 +3478,13 @@ def main() -> int:
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the overlap-2 graphs for K8 (2 stems) and K9 (4 stems), the
     # 2-stem CLI's round-3 route for K10, the streaming CLI for the
-    # streaming synthesis.
+    # streaming synthesis, BS-RoFormer's 300 s separation for the rotary
+    # kernel.
     launches.update(irfft4096=overlap2_launches["irfft4096"],
                     masked_irfft4096=overlap2_launches["masked_irfft4096"],
                     mask_head=round3_launches["mask_head"],
-                    stream_synthesis4096=stream_launches["stream_synthesis4096"])
+                    stream_synthesis4096=stream_launches["stream_synthesis4096"],
+                    rope_qk=rope_launches)
     report = [
         {"name": name, "route": "cuda",
          "source": f"spleeterrt_tpu_torch/csrc/{src}",

@@ -46,8 +46,10 @@ scaled once a call, in float32, before the cast to the compute dtype);
 `to_qkv` and `to_gates` are one matrix product; bands of equal width run
 as one batched matrix product (7 groups for the 62 bands) in the band
 split and the mask estimators; the attention's output projection adds the
-residual in the same matrix product; the rotary embedding is applied as a
-complex product in float32.
+residual in the same matrix product; the rotary embedding is applied in
+float32 to q and k straight from the `to_qkvg` product, by one kernel on
+the card (kernels/rope.py::rope_qk) and by its plain version (a complex
+product) on the CPU.
 
 Chunking (`demix` as the benchmark configuration's `assumed` states it):
 the track is reflect-padded by border = chunk - step on both sides (step =
@@ -69,8 +71,9 @@ overlap-add in float32. The residual stream is kept in the compute dtype.
 Spans (utils/timing.py): `model.roformer` (attributes `chunks`, `batch`,
 `sdpa_backend`) around `roformer.stft`, `roformer.band_split`,
 `roformer.time_attn` and `roformer.band_attn` (each block's attention
-layers), `roformer.ff` (each feed-forward layer), `roformer.mask`,
-`roformer.istft` and `roformer.overlap_add`.
+layers, each with the rotary kernel's `kernels.rope_qk` inside),
+`roformer.ff` (each feed-forward layer), `roformer.mask`, `roformer.istft`
+and `roformer.overlap_add`.
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ import torch
 import torch.nn.functional as F
 
 from spleeterrt_tpu_torch.config import RoformerConfig
+from spleeterrt_tpu_torch.kernels import rope
 from spleeterrt_tpu_torch.utils.timing import span
 
 Params = dict[str, torch.Tensor]
@@ -150,8 +154,10 @@ def init_params(cfg: RoformerConfig, gen: torch.Generator | None = None,
 def pack(params: Params, cfg: RoformerConfig) -> Params:
     """The weights as the forward pass takes them, in the compute dtype:
     each norm's gain folded into the linear layers after it, `to_qkv` and
-    `to_gates` as one weight, equal-width bands stacked into one batched
-    weight (transposed for `bmm`)."""
+    `to_gates` as one weight (its rows padded with zeros to a multiple of
+    8, so that each row of the product starts on 16 bytes, as the rotary
+    kernel reads it), equal-width bands stacked into one batched weight
+    (transposed for `bmm`)."""
     dt, inner = cfg.compute_dtype, cfg.heads * cfg.dim_head
     p = lambda name: params[name].float()
     out = {}
@@ -165,10 +171,12 @@ def pack(params: Params, cfg: RoformerConfig) -> Params:
         for axis in ("time", "band"):
             pre, q = f"layers.{i}.{axis}.", f"{i}.{axis}."
             ga, gf = p(pre + "attn.gamma"), p(pre + "ff.gamma")
-            out[q + "w_qkvg"] = torch.cat(
-                [p(pre + "attn.w_qkv"), p(pre + "attn.w_gate")]).mul(ga).to(dt)
+            b_gate = p(pre + "attn.b_gate")
+            pad = -(3 * inner + cfg.heads) % 8
+            out[q + "w_qkvg"] = F.pad(torch.cat(
+                [p(pre + "attn.w_qkv"), p(pre + "attn.w_gate")]).mul(ga), (0, 0, 0, pad)).to(dt)
             out[q + "b_qkvg"] = torch.cat(
-                [p(pre + "attn.b_gate").new_zeros(3 * inner), p(pre + "attn.b_gate")]).to(dt)
+                [b_gate.new_zeros(3 * inner), b_gate, b_gate.new_zeros(pad)]).to(dt)
             out[q + "w_out_t"] = p(pre + "attn.w_out").t().to(dt)
             out[q + "w1"] = p(pre + "ff.w1").mul(gf).to(dt)
             out[q + "b1"] = p(pre + "ff.b1").to(dt)
@@ -229,12 +237,10 @@ def attention(w: Params, pre: str, x: torch.Tensor, rot: torch.Tensor,
     h, dh = cfg.heads, cfg.dim_head
     inner = h * dh
     qkvg = F.linear(unit_rms(x, x.dtype), w[pre + "w_qkvg"], w[pre + "b_qkvg"])
-    qk = torch.view_as_complex(
-        qkvg[..., : 2 * inner].float().contiguous().view(n, length, 2 * h, dh // 2, 2))
-    qk = torch.view_as_real(qk * rot[:, None]).to(x.dtype).view(n, length, 2, h, dh)
+    qk = rope.rope_qk(qkvg, rot, h)  # (N, L, 2, H, dh)
     v = qkvg[..., 2 * inner : 3 * inner].view(n, length, h, dh)
     o = _sdpa(qk[:, :, 0].transpose(1, 2), qk[:, :, 1].transpose(1, 2), v.transpose(1, 2))
-    gates = torch.sigmoid(qkvg[..., 3 * inner :])
+    gates = torch.sigmoid(qkvg[..., 3 * inner : 3 * inner + h])
     o = o.transpose(1, 2) * gates[..., None]  # (N, L, H, dh)
     return x.reshape(-1, d).addmm(o.reshape(-1, inner), w[pre + "w_out_t"]).view(n, length, d)
 

@@ -4,9 +4,10 @@ K1 `stft_fused.stft4096`, K2 `encoder.enc1`, K3 `encoder.enc_s2` (enc2,
 enc3 and enc4), K4 and K5 `tail.up_shallow` (up4, up5), K6 `tail.head`,
 K7 `stft_fused.masked_istft4096`, K8 `pallas_fft.irfft4096`, K9
 `pallas_fft.masked_irfft4096`, K10 `mask_head.mask_head` (the round-3
-route's head, K6's kernel template with one source), and the streaming
-engine's synthesis `stream_synthesis.stream_synthesis4096`, which ports no
-TPU kernel. Each wrapper checks its tensors, takes its
+route's head, K6's kernel template with one source), the streaming
+engine's synthesis `stream_synthesis.stream_synthesis4096` and
+BS-RoFormer's rotary embedding `rope.rope_qk`, which port no TPU kernel.
+Each wrapper checks its tensors, takes its
 plain torch version for a tensor on the CPU, and launches its kernel or
 raises for a CUDA tensor.
 
@@ -39,7 +40,7 @@ ACT_CODES = {"elu": 0, "leaky": 1, "relu": 2}
 # Kernel names in dataflow order; up_shallow counts up4 and up5 apart.
 KERNELS = ("stft4096", "enc1", "enc_s2", "up4", "up5", "head",
            "masked_istft4096", "irfft4096", "masked_irfft4096", "mask_head",
-           "stream_synthesis4096")
+           "stream_synthesis4096", "rope_qk")
 _launches = dict.fromkeys(KERNELS, 0)
 
 

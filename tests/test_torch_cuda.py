@@ -466,7 +466,7 @@ def test_packed_unet_runs_every_kernel_once(device):
     assert counts == {"stft4096": 0, "enc1": 1, "enc_s2": 3, "up4": 1,
                       "up5": 1, "head": 1, "masked_istft4096": 0,
                       "irfft4096": 0, "masked_irfft4096": 0, "mask_head": 0,
-                      "stream_synthesis4096": 0}
+                      "stream_synthesis4096": 0, "rope_qk": 0}
     cpu = {k: {f: v.cpu() for f, v in ly.items()} for k, ly in stacked.items()}
     ref = model.multi_stem_masks(cpu, mag.cpu())
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
@@ -514,7 +514,7 @@ def test_round3_route_runs_its_kernels(device, monkeypatch):
     assert kernels.launch_counts() == {
         "stft4096": 0, "enc1": 1, "enc_s2": 2, "up4": 0, "up5": 0, "head": 0,
         "masked_istft4096": 0, "irfft4096": 0, "masked_irfft4096": 0,
-        "mask_head": 1, "stream_synthesis4096": 0}
+        "mask_head": 1, "stream_synthesis4096": 0, "rope_qk": 0}
     ref = model.multi_stem_masks(cpu, mag)
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
 
@@ -631,7 +631,8 @@ def test_block_step_streams_launches_each_kernel_once(device):
         assert kernels.launch_counts() == {
             "stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1,
             "head": 1, "masked_istft4096": 0, "irfft4096": 0,
-            "masked_irfft4096": 0, "mask_head": 0, "stream_synthesis4096": 1}
+            "masked_irfft4096": 0, "mask_head": 0, "stream_synthesis4096": 1,
+            "rope_qk": 0}
         ref_state, ref = stream.block_step_streams(cpu, ref_state, blocks[i], cfg,
                                                    2, (0.25, 0.0))
     assert ref.abs().max() > 0.01

@@ -161,6 +161,10 @@ def test_spans_under_tracing(case):
               "roformer.overlap_add"}
     assert all(by_id[s.parent_id].name == "model.roformer" for s in spans if s.name in inside)
     assert {"graph.pad", "graph.crop", "graph.residual"} <= set(names)
+    # The rotary kernel's wrapper: one span in each attention layer.
+    rope = [by_id[s.parent_id].name for s in spans if s.name == "kernels.rope_qk"]
+    assert len(rope) == 2 * SMALL.depth * batches
+    assert rope.count("roformer.time_attn") == rope.count("roformer.band_attn") == len(rope) // 2
 
 
 def test_the_two_reference_copies_agree():
