@@ -50,26 +50,14 @@ Phases, each of which raises (non-zero exit) on failure:
    separate.separate on the 30 s audio launches K2-K6 and K9 and no K1 or
    K7; fp32 kernels against the plain fp32 graph >= 80 dB per stem; the
    2-stem graph at overlap 2 launches K8 once (transform.istft).
-8. 4-stem separation time at 150 s and 300 s (CUDA events): realtime
-   factor, marginal rate, peak device memory, a per-stage breakdown at
-   300 s (K1, K2, K3 x3, mid trunk, K4, K5, K6, K7, each kernel beside its
-   plain version, K1 beside its bound and torch.fft.rfft of the windowed
-   frames alone (an FFT-only yardstick), each K2, K3, K4 and K5 layer
-   beside its bound, the fp32 FMA floor and cuDNN's (transposed)
-   convolution alone, K6 beside its bound and fp32 FMA floor, K7 beside
-   its bound and torch.fft.irfft over the pre-masked spectrum alone, K1,
-   K2 and K4-K7 with their templates' registers, shared memory and
-   occupancy, and the canonical cuDNN U-Net), and a profile of one 300 s
-   separation (device busy time by kernel; bf16 enc1 must run
-   enc1_mma_kernel and no FMA encoder kernel).
-9. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
-   4, 16 and 64 streams, carrying the state: ms per block, the aggregate
+8. Streams on one card: block_step_streams (VST config, bf16) for K = 1,
+   4 and 16 streams, carrying the state: ms per block, the aggregate
    realtime factor, peak memory, the largest K inside the 5.944 s block
-   deadline, a stage breakdown at K = 16 and 64 (with torch.fft.irfft
-   beside K8's stage, and the streaming synthesis beside its bound, its
-   plain version and the chain it replaced: the mask multiply, K8 and the
-   overlap-add in torch) and a profile at K = 1 and 16.
-10. 2, 3 and 5 stems through the CLI on the 30 s WAV (bf16): 2 stems at the
+   deadline, a stage breakdown at K = 16 (with torch.fft.irfft beside K8's
+   stage, and the streaming synthesis beside its bound, its plain version
+   and the chain it replaced: the mask multiply, K8 and the overlap-add in
+   torch) and a profile at K = 1 and 16.
+9. 2, 3 and 5 stems through the CLI on the 30 s WAV (bf16): 2 stems at the
    CLI's defaults (the reference exe's config: bin_limit 1024, time_step
    512) with random weights, 3 stems from a quantized two-subnet file the
    port's writer makes from seeded nets, 5 stems with random weights.
@@ -78,40 +66,39 @@ Phases, each of which raises (non-zero exit) on failure:
    conservation |vocals + accompaniment - input| <= 1e-5, and per-stem SNR
    against the plain fp32 graph (every wrapper's plain version, the
    canonical cuDNN U-Net): >= 42 dB (bf16 CLI) and >= 80 dB (fp32 kernels).
-11. The round-3 route (K2, K3 x2, torch enc4..up5, K10): the 2-stem CLI
+10. The round-3 route (K2, K3 x2, torch enc4..up5, K10): the 2-stem CLI
    with an npz of a narrow-trunk net (save_npz, seeded), then the standard
    net with model.FORCE_PACKED_UNET = False; launches K1, K2, K3 x2, K10,
    K7 and no K4/K5/K6; a profile shows library convolutions only in
-   enc4..up5 (trunk_tail); SNR as in 10.
-12. 2-stem separation at 300 s at the exe config on the packed and the
-   round-3 routes (realtime factors), their U-Net stages beside the
-   canonical U-Net, K6 and K10 each beside its plain version, K10 and the
-   canonical head at S * B = 64 images (the round-3 gate's limit), and a
-   profile of each route.
-13. The HTTP server (runtime/server.py) started with make_server on port
+   enc4..up5 (trunk_tail); SNR as in 9.
+11. 2-stem separation at 300 s at the exe config on the round-3 route
+   (realtime factor), its U-Net stage beside the canonical U-Net, K10
+   beside its plain version, K10 and the canonical head at S * B = 64
+   images (the round-3 gate's limit), and a profile of the route.
+12. The HTTP server (runtime/server.py) started with make_server on port
    0 in a thread on the card (4 stems, VST config, fp32): /healthz;
    /separate on the 30 s WAV as npz (the main path's launch counts) and
    wav8ch (X-Stem-Order); /separate_batch with three tracks of 10, 20 and
    30 s, which launches K1 and K7 once; stems >= 80 dB against
    separate.separate per track; 400 (garbage WAV, a stem count the server
    does not hold, a body that is not an NPZ), 413 and 404.
-14. The batch graphs on four tracks of 20, 30, 45 and 60 s padded to the
+13. The batch graphs on four tracks of 20, 30, 45 and 60 s padded to the
    longest, as the server pads them: separate_nstem_batch at 4 stems (VST
    config), separate_2stem_batch and separate_3stem_batch (exe config),
    in bf16 and fp32; the launch counts of one single-track run for the
    whole batch (K1 and K7 once), per-stem SNR of every track against the
    plain fp32 batch graph (>= 42 dB bf16, >= 80 dB fp32) and the 2-stem
    conservation.
-15. The chunked executor: separate_4stem_chunked on 300 s at 8 tiles a
+14. The chunked executor: separate_4stem_chunked on 300 s at 8 tiles a
    chunk within 1e-5 of the monolithic separate.separate (fp32 kernels),
    and each path's wall time to stems on the host and peak device memory,
    in fp32 and bf16.
-16. Batch timing: separate_nstem_batch (4 stems, VST config, bf16) over B
+15. Batch timing: separate_nstem_batch (4 stems, VST config, bf16) over B
    = 1, 4, 16 and 32 tracks of 60 s a dispatch (CUDA events after a warm
    call): ms a dispatch, aggregate realtime factor, peak memory; at B =
    16 the same tracks as 16 single-track calls; the peak's growth a track
    and the batch the card would hold by it (extrapolated).
-17. Training on the card, on a musdb-layout corpus written from seed 0
+16. Training on the card, on a musdb-layout corpus written from seed 0
    (4 train and 2 holdout tracks of 20 s, vocals, accompaniment and
    mixture; one train track's stems as FLAC from the port's encoder):
    30 bf16 steps at examples/train.py's defaults (2 stems, batch 8, 256 x
@@ -128,7 +115,7 @@ Phases, each of which raises (non-zero exit) on failure:
    plain versions on CPU tensors, bf16 beside it; and train_and_deploy
    (120 fp32 steps, batch 4): SI-SDR rises, the blob round trip within
    1e-5.
-18. The device mesh (parallel/*). At world 1, an NCCL group of one rank in
+17. The device mesh (parallel/*). At world 1, an NCCL group of one rank in
    this process, each entry point beside the port's unsharded graph on the
    card (VST config, bf16): separate_4stem_sharded at 300 s,
    separate_batch_sharded at B = 16 x 60 s, make_stream_fn at K = 16 (a
@@ -148,7 +135,7 @@ Phases, each of which raises (non-zero exit) on failure:
    gradients within 1e-4 of each leaf's max |g|). A rank that fails fails
    the run. The two-rank times are wall times of two processes sharing
    one card, not scaling numbers.
-19. The host modules and the ranked service. The native runtime
+18. The host modules and the ranked service. The native runtime
    (native/) must build with g++; a 60 s stereo FLAC from io/flac.py's
    encoder decodes bit for bit the same natively and in Python, both
    times printed. Where libmpg123 loads, a 30 s MP3 made in the phase
@@ -158,36 +145,17 @@ Phases, each of which raises (non-zero exit) on failure:
    The 300 s 4-stem bf16 graph under StageTimer(sync=...) beside the CUDA
    events of the same call (the difference within the host's enqueue
    time); a profiler_trace of it must name stft4096_kernel,
-   enc1_mma_kernel and masked_istft4096_kernel; dump_spectrogram_pngs of
+   enc1_mma_kernel and masked_istft4096_kernel and no FMA encoder kernel
+   (bf16 enc1 runs the tensor-core template alone); dump_spectrogram_pngs of
    K1's first magnitude tile must write PNGs holding its pixels. Then
    /separate_batch over ranks (runtime/server.py with a mesh): at world 1
-   over NCCL, phase 13's three tracks (4 stems, VST config, fp32,
+   over NCCL, phase 12's three tracks (4 stems, VST config, fp32,
    deterministic cuDNN) bit for bit with the single-process service and
    one 4-stem run's launches; two spawned ranks sharing the card over
    gloo, rank 0 serving on port 0 and the other in serve_rank_loop: fp32
    within 1e-5 of each stem's peak and bf16 >= 60 dB against the
    single-process service, and both ranks exit 0 after the stop op code.
    A rank that fails or misses its deadline fails the run.
-20. The stem axis: the grouped stages (core/grouped.py, every stem in one
-   grouped cuDNN convolution a layer) beside the per-stem loops, built
-   here from model.stem_params and the single-net functions. Differences
-   under deterministic cuDNN with TF32 off (fp32 within 1e-5 of the loop's
-   peak, bf16 finite and logged); times by CUDA events under cuDNN's own
-   choice, 7 samples a side in turns, best, median and range, and whether
-   grouped is slower or faster beyond the spread. The mid trunk at the
-   4-stem 300 s shape (K2/K3's act4 and skip4, 204 x 16 x 96 x 128) in
-   fp32 and bf16, model.mid_trunk's loop over stems beside the grouped
-   form built here from core/grouped.py's layers (measured slower, so the
-   library keeps the loop), with each side's device kernels split into
-   library convolutions, copies and elementwise passes, the torch ops
-   behind them, the bound, and the grouped form's library convolution
-   kernels at 4 stems beside one stem's; the 4-stem 300 s graph (bf16)
-   with the per-stem mid trunk beside the grouped one patched in, its
-   launches (K1, K2, K3 x3, K4-K7 once) and its profile's idle share; the
-   round-3 trunk (2 stems, exe config, 300 s, 26 images; 4 stems, VST
-   config, 30 s, 24 images) and the canonical route (4 stems, 30 s, 24
-   images) against their loops; the bf16 train step at phase 17's shape
-   through the grouped route beside the loop, and its profile.
 
 Phase 2 also runs K1 and K7 with four 30 s tracks folded into their rows
 (tracks = 4): against their plain versions, twice bit-identical, and each
@@ -198,6 +166,11 @@ shapes (3 tiles of 256 x 512 x 32) and on the 4-stem VST batch with its
 stems folded (S = 4, x = [skip1 | up5] of the plain chain), where it must
 also give K6's masks bit for bit. Phase 2's plain chain runs cuDNN's
 deterministic algorithms, so its errors repeat from run to run.
+
+This script checks and portbench/ measures: the cells of BENCHMARK.json
+(4 stems at 300 s, 64 streams, the 2-stem packed route at 300 s,
+BS-RoFormer at 300 s) are timed by python3 -m portbench.run, not here.
+What this script times is each kernel alone and the paths no cell runs.
 
 The last three lines are the kernel report (every hand kernel: the ten
 ports, the streaming synthesis and the rotary kernel, each with its
@@ -213,7 +186,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import datetime
-import functools
 import io
 import json
 import math
@@ -234,6 +206,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from portbench import work
 from spleeterrt_tpu_torch import cli, cli_stream, kernels, native
 from spleeterrt_tpu_torch.config import (
     STEM_MODE_2,
@@ -276,7 +249,7 @@ SR = 44100
 SEED = 0
 SMOKE_SECONDS = 30.0
 BIN_LIMIT, TIME_STEP = 1536, 256  # the VST config (bench.py:89-94)
-BENCH_SECONDS = (150.0, 300.0)  # the marginal rate is their slope
+TRACK_SECONDS = 300.0  # the stage timer's 4-stem graph and the round-3 route
 SNR_BF16_MIN_DB = 42.0  # production bf16 vs plain fp32 (docs/PARITY.md band)
 SNR_FP32_MIN_DB = 80.0  # fp32 kernels vs plain fp32: the kernels alone
 # Kernel vs plain version: both are fp32 FFTs that round in another order;
@@ -301,7 +274,7 @@ STREAM_BLOCK_LAUNCHES = {"stft4096": 1, "enc1": 1, "enc_s2": 3, "up4": 1,
 OVERLAP2_LAUNCHES = {"enc1": 1, "enc_s2": 3, "up4": 1, "up5": 1, "head": 1,
                      "masked_irfft4096": 1}
 STREAM_QUALITY_BLOCKS = 4  # 23.8 s of the smoke audio
-STREAM_COUNTS = (1, 4, 16, 64)  # concurrent streams timed on one card
+STREAM_COUNTS = (1, 4, 16)  # concurrent streams timed on one card
 BLOCK_LEN = TIME_STEP * 1024  # samples in one streaming block
 BLOCK_SECONDS = BLOCK_LEN / SR  # 5.944 s: a block step's deadline
 # The CLI's defaults, the reference exe's config: the 2- and 3-stem cells.
@@ -332,13 +305,7 @@ SERVER_BATCH_SECONDS = (10.0, 20.0, 30.0)  # /separate_batch's three tracks
 # within rope.rope_qk_error's bound, and this share of them bit-equal.
 ROPE_MIN_BIT_EQUAL = 0.999
 ROFORMER_SECONDS = 300.0  # the separation that counts the rotary kernel's launches
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense rates at
-# 700 W): a kernel's bound is the larger of its bytes over the memory rate
-# and its operations over the peak rate of its operands' type (float32
-# outside the tensor cores; bf16 on them).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-RFFT_OPS = 2.5 * 4096 * 12  # 5 N log2 N / 2 for one real FFT of N = 4096
+RFFT_OPS = work.rfft_flops(4096)  # one real FFT of N = 4096
 # (kernel, source in csrc/, TPU kernel body it replaces in spleeterrt_tpu/kernels/)
 KERNEL_TABLE = (
     ("stft4096", "stft.cu", "stft_fused.py:183"),
@@ -427,6 +394,18 @@ def plain_separate(stacked, audio: np.ndarray, cfg, device) -> dict:
                                                    cfg.bin_limit, swin)
         stems = transform.overlap_add(frames, tcfg)
     return dict(zip(cfg.stem_names, stems[..., preshift : preshift + n]))
+
+
+def per_stem_masks(stacked, mag, stem_mode=STEM_MODE_4,
+                   compute_dtype=torch.float32, sigmoid="exact"):
+    """Each stem's canonical net, model.unet_forward_nchw, one after the
+    other -> (S, B, 2, T, F): the per-stem formulation, which shares no
+    code with core/grouped.py."""
+    return torch.stack([
+        model.unet_forward_nchw(model.stem_params(stacked, s), mag, stem_mode,
+                                compute_dtype, sigmoid)
+        for s in range(model.num_stems(stacked))
+    ])
 
 
 def vst_config(compute_dtype, overlap: int = 4):
@@ -558,7 +537,7 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     two_stem = two_stem_head_inputs(audio, device)
     timed = collections.defaultdict(list)  # kernel -> its timed calls
     for dtype in (torch.float32, torch.bfloat16):
-        calls = unet_calls(stacked, pmag, dtype)[0]
+        calls = unet_calls(stacked, pmag, dtype)
         for label, name, fn, plain, args, kw in calls:
             got, ref = fn(*args, **kw), plain(*args, **kw)
             torch.cuda.synchronize()
@@ -647,25 +626,6 @@ def phase_kernels(cfg, device) -> dict[str, dict]:
     return report
 
 
-def log_stft(label: str, args, ms: float) -> None:
-    """K1's time beside its bound, cuFFT's torch.fft.rfft of the windowed
-    frames alone (the frames built outside the timing; no magnitude tiles
-    or zero frames: an FFT-only yardstick, not a library call for K1's
-    function), and its resources."""
-    bound = bound_entry([("stft4096", args, {})])
-    audio, window, n_comp = args[:3]
-    need = (n_comp - 1) * stft_fused.HOP + stft_fused.N
-    x = torch.nn.functional.pad(audio, (0, max(0, need - audio.shape[-1])))[:, :need]
-    frames = (x.unfold(-1, stft_fused.N, stft_fused.HOP) * window).contiguous()
-    fft_ms = cuda_ms(lambda: torch.fft.rfft(frames, n=stft_fused.N), 10)
-    del x, frames
-    log(f"[{label}] {audio.shape[0]} rows x {args[3]} frames: kernel {ms:.4f} ms, "
-        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
-        f"{100 * bound['bound_ms'] / ms:.1f}%; torch.fft.rfft of the windowed frames "
-        f"alone (yardstick) {fft_ms:.4f} ms; {stft_fused.STFT_GROUPS} groups a block, "
-        f"{resources(stft_fused.stft_attributes(audio.device))}")
-
-
 def log_enc1(label: str, args, kw, ms: float) -> None:
     """K2's time beside its bound, the fp32 FMA floor (its multiply-adds on
     CUDA cores at 67 TFLOP/s) and cuDNN's convolution 2 -> 16 S alone on
@@ -674,7 +634,7 @@ def log_enc1(label: str, args, kw, ms: float) -> None:
     and one output; a convolution-only yardstick, not a library call for
     K2's function), and in bf16 the tensor-core template's resources."""
     bound = bound_entry([("enc1", args, kw)])
-    floor_ms = kernel_work("enc1", args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    floor_ms = kernel_work("enc1", args, kw)[1] / peak_ops_per_s(torch.float32) * 1e3
     mag, w = args[:2]
     dtype = kw["dtype"]
     x = mag.to(dtype)
@@ -699,7 +659,7 @@ def log_k3_layer(label: str, args, kw, ms: float) -> None:
     multiply-adds, but no bias, batch norm or activation and one output),
     not a library call for K3's function."""
     bound = bound_entry([("enc_s2", args, kw)])
-    floor_ms = kernel_work("enc_s2", args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    floor_ms = kernel_work("enc_s2", args, kw)[1] / peak_ops_per_s(torch.float32) * 1e3
     x, w = args[0], args[1]
     xc = x.permute(0, 3, 1, 2)  # NHWC memory: an NCHW view in channels_last
     wc = w[0].to(x.dtype).contiguous(memory_format=torch.channels_last)
@@ -720,7 +680,7 @@ def log_up_layer(label: str, name: str, args, kw, ms: float) -> None:
     template's resources (registers a thread, shared memory a block,
     resident blocks and warps an SM)."""
     bound = bound_entry([(name, args, kw)])
-    floor_ms = kernel_work(name, args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+    floor_ms = kernel_work(name, args, kw)[1] / peak_ops_per_s(torch.float32) * 1e3
     skip, prev, w = args[:3]
     x = torch.cat([skip, prev], -1).permute(0, 3, 1, 2)  # channels_last NCHW view
     wc = w[0].to(skip.dtype).contiguous(memory_format=torch.channels_last)
@@ -744,39 +704,6 @@ def resources(a: dict) -> str:
     return (f"{a['registers']} registers x {a['threads']} threads, "
             f"{a['smem_bytes']} B shared, {a['blocks_per_sm']} blocks an SM "
             f"({warps} warps, {100 * warps / 64:.1f}% occupancy)")
-
-
-def log_head(label: str, args, kw, ms: float) -> None:
-    """K6's time beside its bound and the fp32 FMA floor (its multiply-adds
-    on CUDA cores at 67 TFLOP/s), and in bf16 the tensor-core template's
-    resources."""
-    bound = bound_entry([("head", args, kw)])
-    floor_ms = kernel_work("head", args, kw)[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
-    src = args[0]
-    res = ""
-    if tail._head_tensor_cores(src.dtype):
-        res = f"; head_mma_kernel {resources(tail.head_mma_attributes(src.device))}"
-    log(f"[{label}] skip1 {tuple(src.shape)} {str(src.dtype)[6:]}: kernel {ms:.4f} "
-        f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
-        f"{100 * bound['bound_ms'] / ms:.1f}%, fp32 FMA floor {floor_ms:.4f} ms{res}")
-
-
-def log_istft(label: str, args, ms: float) -> None:
-    """K7's time beside its bound, torch.fft.irfft over the pre-masked
-    (S, rows, n_frames, 2049) spectrum alone (cuFFT; an FFT-only yardstick,
-    with no mask, window or overlap-add, not a library call for K7's
-    function), and its resources."""
-    bound = bound_entry([("masked_istft4096", args, {})])
-    spec, masks, out_band, _, n_frames = args
-    y = stft_fused.masked_bins(spec, masks, out_band, n_frames)
-    fft_ms = cuda_ms(lambda: torch.fft.irfft(y, n=4096), 5, 1)
-    s, rows = y.shape[:2]
-    del y
-    log(f"[{label}] {s} stems x {rows} rows x {n_frames} frames: kernel {ms:.4f} ms, "
-        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
-        f"{100 * bound['bound_ms'] / ms:.1f}%; torch.fft.irfft of the masked "
-        f"spectrum alone (yardstick) {fft_ms:.4f} ms; run {stft_fused.RUN_HOPS} "
-        f"hops, {resources(stft_fused.istft_attributes(spec.device))}")
 
 
 @contextlib.contextmanager
@@ -883,14 +810,23 @@ def kernel_work(name: str, args, kw) -> tuple[float, float, torch.dtype]:
     raise ValueError(name)
 
 
+def peak_ops_per_s(dtype: torch.dtype) -> float:
+    """The card's published peak rate (portbench.work's) for operands of
+    `dtype`: float32 outside the tensor cores, bf16 on them."""
+    return work.PEAK_OPS_PER_S[str(dtype).removeprefix("torch.")]
+
+
 def bound_entry(calls) -> dict:
-    """The least time the card could take for the calls' work (ms), and
-    whether bytes or operations set it."""
+    """The least time the card could take for the calls' work (ms): the
+    larger of their bytes over the memory rate and their operations over
+    the peak rate of their operands' type (portbench.work's peaks: NVIDIA
+    H100 SXM data sheet, dense rates at 700 W); and whether bytes or
+    operations set it."""
     bytes_ms = ops_ms = 0.0
     for name, args, kw in calls:
         nb, ops, dtype = kernel_work(name, args, kw)
-        bytes_ms += nb / HBM_BYTES_PER_S * 1e3
-        ops_ms += ops / PEAK_OPS_PER_S[dtype] * 1e3
+        bytes_ms += nb / work.HBM_BYTES_PER_S * 1e3
+        ops_ms += ops / peak_ops_per_s(dtype) * 1e3
     if bytes_ms >= ops_ms:
         return {"bound_ms": bytes_ms, "bound_by": "bytes"}
     return {"bound_ms": ops_ms, "bound_by": "operations"}
@@ -979,11 +915,12 @@ def overlap2_k9_args(audio: torch.Tensor, device) -> tuple:
             BIN_LIMIT, transform.synthesis_window(tcfg, device=device))
 
 
-def unet_calls(stacked, mag, dtype, stem_mode=STEM_MODE_4
-               ) -> tuple[list[tuple], tuple]:
-    """The packed U-Net's kernel calls at `mag`'s shapes in dataflow order,
-    (label, counter, wrapper, plain, args, kwargs), each on the outputs of
-    the plain chain before it, and the mid trunk's arguments."""
+def unet_calls(stacked, mag, dtype) -> list[tuple]:
+    """The packed 4-stem U-Net's kernel calls at `mag`'s shapes in dataflow
+    order, (label, counter, wrapper, plain, args, kwargs), each on the
+    outputs of the plain chain before it."""
+    stem_mode = STEM_MODE_4
+
     def layer(name):
         ly = stacked[name]
         return ly["w"], ly["b"], ly["bn_scale"], ly["bn_shift"]
@@ -1001,8 +938,7 @@ def unet_calls(stacked, mag, dtype, stem_mode=STEM_MODE_4
                       encoder.enc_s2_plain, args, kw))
         skip, x = encoder.enc_s2_plain(*args, **kw)
         skips.append(skip)
-    trunk_args = (stacked, x, skips[3], stem_mode, dtype)
-    x = model.mid_trunk(*trunk_args)
+    x = model.mid_trunk(stacked, x, skips[3], stem_mode, dtype)
     kw = {"act": model.decoder_act_name(stem_mode)}
     for i in (4, 5):
         args = (skips[6 - i], x, *layer(f"up{i}"))
@@ -1011,7 +947,7 @@ def unet_calls(stacked, mag, dtype, stem_mode=STEM_MODE_4
         x = tail.up_shallow_plain(*args, **kw)
     args = (skips[0], x, *layer("up6"), stacked["up7"]["w"], stacked["up7"]["b"])
     calls.append(("K6 head", "head", tail.head, tail.head_plain, args, kw))
-    return calls, trunk_args
+    return calls
 
 
 def unet_error(got, ref, dtype, name, args, kw) -> tuple[float, float, float]:
@@ -1131,101 +1067,6 @@ def phase_quality(cli_stems: dict, device) -> None:
             f"(>= {SNR_FP32_MIN_DB})")
         if not (bf16 >= SNR_BF16_MIN_DB and fp32 >= SNR_FP32_MIN_DB):
             raise AssertionError(f"{stem}: SNR below its bound")
-
-
-def phase_timing(device) -> None:
-    """separate_4stem on pre-padded device audio at 150 s and 300 s, as
-    bench.py times the reference package, plus a stage breakdown and a
-    profile at 300 s."""
-    cfg = vst_config(torch.bfloat16)
-    stacked = random_stacked(device)
-    inputs = {}
-    for seconds in BENCH_SECONDS:
-        rng = np.random.default_rng(SEED)
-        audio = torch.as_tensor(
-            rng.standard_normal((2, int(seconds * SR))) * 0.3,
-            dtype=torch.float32, device=device)
-        inputs[seconds] = transform.pad_offline(audio, cfg.transform).contiguous()
-        separate.separate_4stem(stacked, inputs[seconds], cfg)  # warm up
-    # The sizes take turns, so clocks and caches treat both alike; the
-    # best of three rounds of three runs is kept for each.
-    times = {s: float("inf") for s in BENCH_SECONDS}
-    for _ in range(3):
-        for seconds, padded in inputs.items():
-            ms = cuda_ms(lambda: separate.separate_4stem(stacked, padded, cfg),
-                         iters=3, warmup=0)
-            times[seconds] = min(times[seconds], ms)
-    for seconds, ms in times.items():
-        log(f"[timing] {seconds:.0f} s: {ms:.3f} ms per separate_4stem, "
-            f"{seconds / (ms / 1e3):.2f}x realtime")
-    padded = inputs.pop(BENCH_SECONDS[-1])
-    inputs.clear()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    separate.separate_4stem(stacked, padded, cfg)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(device)  # weights + input included
-
-    # Stage breakdown at the longest input, each kernel beside its plain
-    # version on the same inputs.
-    n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
-    awin = transform.analysis_window(4096, device=device)
-    swin = transform.synthesis_window(cfg.transform, device=device)
-    k1_args = (padded, awin, n_comp, n_req, cfg.bin_limit, cfg.time_step)
-    spec, mag = stft_fused.stft4096(*k1_args)
-    masks = model.multi_stem_masks(stacked, mag, STEM_MODE_4,
-                                   cfg.compute_dtype, cfg.sigmoid)
-    ob = torch.tensor(separate.OUT_BAND_4, device=device)
-    k7_args = (spec, masks, ob, swin, n_out)
-    stages = {
-        "K1 stft4096": cuda_ms(lambda: stft_fused.stft4096(*k1_args), 10),
-        "K1 plain": cuda_ms(lambda: stft_fused.stft4096_plain(*k1_args), 10),
-    }
-    log_stft(f"K1 stft4096, {BENCH_SECONDS[-1]:.0f} s", k1_args, stages["K1 stft4096"])
-    calls, trunk_args = unet_calls(stacked, mag, cfg.compute_dtype)
-    for i, (label, name, fn, plain, args, kw) in enumerate(calls):
-        if i == 4:  # between enc4 and up4, in dataflow order
-            stages["mid trunk (cuDNN, 4 stems)"] = cuda_ms(
-                lambda: model.mid_trunk(*trunk_args), 5, 1)
-        stages[label] = cuda_ms(lambda: fn(*args, **kw), 5, 1)
-        stages[f"{label} plain"] = cuda_ms(lambda: plain(*args, **kw), 3, 1)
-        if name == "enc1":
-            log_enc1(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw, stages[label])
-        elif name == "enc_s2":
-            log_k3_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw,
-                         stages[label])
-        elif name in ("up4", "up5"):
-            log_up_layer(f"{label}, {BENCH_SECONDS[-1]:.0f} s", name, args, kw,
-                         stages[label])
-        elif name == "head":
-            log_head(f"{label}, {BENCH_SECONDS[-1]:.0f} s", args, kw, stages[label])
-    del calls, trunk_args
-    stages["K7 masked_istft4096"] = cuda_ms(
-        lambda: stft_fused.masked_istft4096(*k7_args), 10)
-    stages["K7 plain"] = cuda_ms(
-        lambda: stft_fused.masked_istft4096_plain(*k7_args), 10)
-    log_istft(f"K7 masked_istft4096, {BENCH_SECONDS[-1]:.0f} s", k7_args,
-              stages["K7 masked_istft4096"])
-    stages["U-Net x4 stems, packed (K2-K6 + mid trunk)"] = cuda_ms(
-        lambda: model.multi_stem_masks(stacked, mag, STEM_MODE_4,
-                                       cfg.compute_dtype, cfg.sigmoid), 5, 1)
-    stages["U-Net x4 stems, canonical (cuDNN, grouped)"] = cuda_ms(
-        lambda: model.multi_stem_masks_canonical(
-            stacked, mag, STEM_MODE_4, cfg.compute_dtype, cfg.sigmoid), 5, 1)
-    for name, ms in stages.items():
-        log(f"[timing] {BENCH_SECONDS[-1]:.0f} s stage {name}: {ms:.3f} ms")
-    small, big = BENCH_SECONDS
-    rtf = big / (times[big] / 1e3)
-    marginal = (big - small) / ((times[big] - times[small]) / 1e3)
-    log(f"[timing] realtime factor {rtf:.2f}x at {big:.0f} s, marginal "
-        f"{marginal:.2f}x, peak memory {peak / 2**30:.3f} GiB")
-    names = profile_device("one separation",
-                           lambda: separate.separate_4stem(stacked, padded, cfg))
-    # bf16 enc1 runs the tensor-core template and no FMA encoder kernel.
-    fma = [n for n in names if "enc_conv_kernel" in n]
-    if not any("enc1_mma_kernel" in n for n in names) or fma:
-        raise AssertionError(f"bf16 enc1 did not run enc1_mma_kernel alone: {fma}")
-    log("[profile] bf16 enc1 ran enc1_mma_kernel; no FMA encoder kernel ran")
 
 
 def profile_device(label: str, fn) -> collections.Counter:
@@ -1387,7 +1228,7 @@ def phase_overlap2(device) -> dict:
 def phase_stream_timing(device) -> None:
     """block_step_streams at the VST config in bf16 for each of
     STREAM_COUNTS, carrying the state as a serving loop does; a stage
-    breakdown at K = 16 and 64 and a profile at K = 1 and 16."""
+    breakdown at K = 16 and a profile at K = 1 and 16."""
     cfg = vst_config(torch.bfloat16)
     stacked = random_stacked(device)
     rng = np.random.default_rng(SEED)
@@ -1417,7 +1258,7 @@ def phase_stream_timing(device) -> None:
         log(f"[streams] K = {k}: {best:.3f} ms per block step, aggregate "
             f"{k * BLOCK_SECONDS / (best / 1e3):.2f}x realtime, peak memory "
             f"{peak / 2**30:.3f} GiB")
-        if k in (16, 64):
+        if k == 16:
             stream_stages(stacked, state, block, cfg)
         if k in (1, 16):
             profile_device(f"one block step, K = {k}", lambda: (
@@ -1674,51 +1515,39 @@ def check_library_convs_round3(tag, x, params, cfg, device) -> None:
 
 
 def phase_timing_2stem(device) -> None:
-    """separate_2stem at 300 s at the exe config (bf16, the CLI's random
-    2-stem net) on the packed and the round-3 routes, their U-Net and head
-    stages, and K10 against the canonical head at HEAD_BATCH_LIMIT images."""
+    """separate_2stem at TRACK_SECONDS at the exe config on the round-3
+    route (bf16, the CLI's random 2-stem net), its U-Net stage beside the
+    canonical U-Net, K10 beside its plain version, and K10 against the
+    canonical head at HEAD_BATCH_LIMIT images. The packed route is the
+    benchmark's exe2-track300 cell."""
     cfg = exe_config(2, torch.bfloat16)
     params = cli.load_weights(None, True, SEED, cfg, device)["params"]
-    seconds = BENCH_SECONDS[-1]
+    seconds = TRACK_SECONDS
     rng = np.random.default_rng(SEED)
     audio = torch.as_tensor(rng.standard_normal((2, int(seconds * SR))) * 0.3,
                             dtype=torch.float32, device=device)
     padded = transform.pad_offline(audio, cfg.transform).contiguous()
-    run = lambda: separate.separate_2stem(params, padded, cfg)
-    routes = {"packed": contextlib.nullcontext, "round 3": packed_unet_off}
-    for switch in routes.values():
-        with switch():
-            run()  # warm up
-    times = {name: float("inf") for name in routes}
-    for _ in range(3):  # the routes take turns; best of three rounds of three
-        for name, switch in routes.items():
-            with switch():
-                times[name] = min(times[name], cuda_ms(run, iters=3, warmup=0))
-    for name, ms in times.items():
-        log(f"[2-stem timing] {seconds:.0f} s, {name} route: {ms:.3f} ms per "
-            f"separate_2stem, {seconds / (ms / 1e3):.2f}x realtime")
-
     _, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
     _, mag = stft_fused.stft4096(
         padded, transform.analysis_window(4096, device=device), n_comp, n_req,
         cfg.bin_limit, cfg.time_step)
-    one = model.with_stem_axis(params)
-    masks = lambda: separate.single_net_masks(params, mag, cfg, STEM_MODE_2)
-    stages = {"U-Net, packed (K2-K6 + mid trunk)": cuda_ms(masks, 5, 1)}
+    run = lambda: separate.separate_2stem(params, padded, cfg)
     with packed_unet_off():
-        stages["U-Net, round 3 (K2, K3 x2, torch enc4..up5, K10)"] = cuda_ms(
-            masks, 5, 1)
+        run()  # warm up
+        ms = min(cuda_ms(run, iters=3, warmup=0) for _ in range(3))
+        log(f"[2-stem timing] {seconds:.0f} s, round 3 route: {ms:.3f} ms per "
+            f"separate_2stem, {seconds / (ms / 1e3):.2f}x realtime")
+        profile_device(f"one {seconds:.0f} s 2-stem separation, round 3 route", run)
+        stages = {"U-Net, round 3 (K2, K3 x2, torch enc4..up5, K10)": cuda_ms(
+            lambda: separate.single_net_masks(params, mag, cfg, STEM_MODE_2), 5, 1)}
+    one = model.with_stem_axis(params)
     stages["U-Net, canonical (cuDNN)"] = cuda_ms(
         lambda: model.multi_stem_masks_canonical(one, mag, STEM_MODE_2,
                                                  cfg.compute_dtype), 5, 1)
-    calls, _ = unet_calls(one, mag, cfg.compute_dtype, STEM_MODE_2)
-    _, _, _, _, k6_args, kw = calls[-1]
-    stages["K6 head"] = cuda_ms(lambda: tail.head(*k6_args, **kw), 10)
-    stages["K6 plain"] = cuda_ms(lambda: tail.head_plain(*k6_args, **kw), 5, 1)
-    del calls, k6_args
     x = model.multi_stem_trunk(one, mag, STEM_MODE_2, cfg.compute_dtype)
     ly6, ly7 = one["up6"], one["up7"]
     w = (ly6["w"], ly6["b"], ly6["bn_scale"], ly6["bn_shift"], ly7["w"], ly7["b"])
+    kw = {"act": model.decoder_act_name(STEM_MODE_2)}
     stages["K10 mask_head"] = cuda_ms(lambda: mask_head.mask_head(x, *w, **kw), 10)
     stages["K10 plain"] = cuda_ms(
         lambda: mask_head.mask_head_plain(x, *w, **kw), 5, 1)
@@ -1731,11 +1560,6 @@ def phase_timing_2stem(device) -> None:
                                      STEM_MODE_2, cfg.compute_dtype), 10)
     for name, ms in stages.items():
         log(f"[2-stem timing] {seconds:.0f} s stage {name}: {ms:.3f} ms")
-    del x, x64
-    for name, switch in routes.items():
-        with switch():
-            profile_device(f"one {seconds:.0f} s 2-stem separation, {name} "
-                           f"route", run)
 
 
 # ---------------------------------------------------------------------------
@@ -2293,7 +2117,7 @@ def phase_train_steps(train_set, device, smi: str):
         f"ms a step (wall) = {TRAIN_BATCH * crop_s * TRAIN_STEPS / wall:.1f} "
         f"audio s a second; peak memory {peak / 2**30:.3f} GiB; "
         f"{flops / 1e12:.4f} TFLOP a step (3x forward) = "
-        f"{100 * flops / (ms / 1e3) / PEAK_OPS_PER_S[torch.bfloat16]:.2f}% of "
+        f"{100 * flops / (ms / 1e3) / peak_ops_per_s(torch.bfloat16):.2f}% of "
         f"the bf16 peak ({smi})")
     if not all(math.isfinite(x) for x in losses) or not last < first:
         raise AssertionError(f"train: losses not finite or not falling "
@@ -2801,10 +2625,11 @@ def trace_kernel_names(trace_path: str) -> set[str]:
 def phase_stage_timing(workdir: str, device, smi: str) -> None:
     """The 300 s 4-stem bf16 graph under StageTimer(sync=...) beside the
     CUDA-event time of the same call; a profiler_trace of it that names K1,
-    bf16 K2 and K7; K1's magnitude tiles through dump_spectrogram_pngs."""
+    bf16 K2 and K7 and no FMA encoder kernel; K1's magnitude tiles through
+    dump_spectrogram_pngs."""
     cfg = vst_config(torch.bfloat16)
     stacked = random_stacked(device)
-    seconds = BENCH_SECONDS[-1]
+    seconds = TRACK_SECONDS
     padded = transform.pad_offline(
         torch.from_numpy(synthetic_audio(seconds)).to(device),
         cfg.transform).contiguous()
@@ -2851,6 +2676,11 @@ def phase_stage_timing(workdir: str, device, smi: str) -> None:
             break
     else:
         raise AssertionError(f"profiler_trace never named {missing}")
+    # bf16 enc1 runs the tensor-core template and no FMA encoder kernel.
+    fma = sorted(n for n in names if "enc_conv_kernel" in n)
+    if fma:
+        raise AssertionError(f"bf16 enc1 did not run enc1_mma_kernel alone: {fma}")
+    log("[profiler_trace] bf16 enc1 ran enc1_mma_kernel; no FMA encoder kernel ran")
 
     n_out, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
     _, mag = stft_fused.stft4096(
@@ -3096,350 +2926,6 @@ def phase_host(workdir: str, device, smi: str) -> None:
     log(f"[host] phase done in {time.perf_counter() - t0:.3f} s")
 
 
-# ---------------------------------------------------------------------------
-# The stem axis: the grouped stages beside the per-stem loops they replaced
-# ---------------------------------------------------------------------------
-
-# The mid trunk's layers enc5, enc6, up1..up3 as (Cin, Cout, pixels the
-# MACs run over relative to its input's t16 x f16): convs at their output
-# size, transposed convs at their input size.
-MID_TRUNK_LAYERS = ((128, 256, 1 / 4), (256, 512, 1 / 16), (512, 256, 1 / 16),
-                    (512, 128, 1 / 4), (256, 64, 1))
-STEM_AXIS_ROUNDS = 7  # timed samples of each side, in turns
-STEM_AXIS_F32_REL = 1e-5  # grouped vs per-stem, fp32, of the per-stem peak
-
-
-def mid_trunk_work(act4: torch.Tensor, n_stems: int) -> tuple[float, float]:
-    """(operations, bytes) of the mid trunk over act4 (S * B, T/16, F/16,
-    128): 2 x MACs of enc5, enc6, up1..up3; act4, skip4 and up3's output
-    once each, and every stem's weights in the compute dtype."""
-    n, t16, f16, _ = act4.shape
-    macs = sum(n * t16 * f16 * px * cin * cout * 25
-               for cin, cout, px in MID_TRUNK_LAYERS)
-    weights_n = n_stems * sum(cin * cout * 25 for cin, cout, _ in MID_TRUNK_LAYERS)
-    out_n = n * 2 * t16 * 2 * f16 * 64
-    return 2.0 * macs, act4.element_size() * (2 * act4.numel() + out_n + weights_n)
-
-
-def per_stem_masks(stacked, mag, stem_mode=STEM_MODE_4,
-                   compute_dtype=torch.float32, sigmoid="exact"):
-    """Each stem's canonical net, model.unet_forward_nchw, one after the
-    other -> (S, B, 2, T, F): the per-stem formulation, which shares no
-    code with core/grouped.py."""
-    return torch.stack([
-        model.unet_forward_nchw(model.stem_params(stacked, s), mag, stem_mode,
-                                compute_dtype, sigmoid)
-        for s in range(model.num_stems(stacked))
-    ])
-
-
-def grouped_mid_trunk(stacked, act4, skip4, stem_mode, compute_dtype):
-    """The mid trunk on core/grouped.py's layers, every stem in one grouped
-    convolution a layer: the form model.mid_trunk does not take, because
-    this phase measured it slower than the loop over stems it keeps. (S *
-    B, T/16, F/16, 128) NHWC in, up3's output (S * B, T/8, F/8, 64) NHWC
-    out."""
-    s = model.num_stems(stacked)
-    conv5: list[torch.Tensor] = []
-    x = grouped.encoder(stacked, grouped.to_grouped(act4, s), range(5, 7),
-                        conv5, s, stem_mode, compute_dtype)
-    skips = {1: conv5[0], 2: grouped.to_grouped(skip4, s)}
-    for i in range(1, 4):
-        x = grouped.decoder(stacked[f"up{i}"], x, s, stem_mode, compute_dtype)
-        if i < 3:
-            x = grouped.concat_g(skips[i], x, s)
-    return grouped.from_grouped(x, s)
-
-
-def per_stem_trunk(stacked, mag, stem_mode, compute_dtype):
-    """model.multi_stem_trunk's K2/K3-fronted branch with each stem's
-    trunk_tail in turn, the loop the grouped layers replaced -> up6's
-    input (S * B, T/2, F/2, C) NHWC."""
-    n, b = model.num_stems(stacked), mag.shape[0]
-    skips, act3 = model.kernel_encoder(stacked, mag, 3, stem_mode, compute_dtype)
-    fronts = [*skips, act3]
-    out = []
-    for s in range(n):
-        *skips3, x = (a[s * b:(s + 1) * b].permute(0, 3, 1, 2) for a in fronts)
-        y = model.trunk_tail(model.stem_params(stacked, s), x, skips3,
-                             stem_mode, compute_dtype)
-        out.append(y.permute(0, 2, 3, 1))
-    return torch.cat(out)
-
-
-def with_attr(mod, name: str, value, fn):
-    """fn with mod.name set to value for the call."""
-    def run():
-        saved = getattr(mod, name)
-        setattr(mod, name, value)
-        try:
-            return fn()
-        finally:
-            setattr(mod, name, saved)
-    return run
-
-
-def turns_ms(fns: dict, rounds: int = STEM_AXIS_ROUNDS, iters: int = 3
-             ) -> dict[str, list[float]]:
-    """ms a call of each fn by CUDA events (mean of `iters` calls a sample),
-    `rounds` samples each after one warm call, the fns taking turns (a, b,
-    b, a, ...) so clocks and caches treat them alike."""
-    for fn in fns.values():
-        fn()
-    names = list(fns)
-    out = {name: [] for name in names}
-    for r in range(rounds):
-        for name in (names if r % 2 == 0 else names[::-1]):
-            out[name].append(cuda_ms(fns[name], iters=iters, warmup=0))
-    return out
-
-
-def log_turns(tag: str, times: dict[str, list[float]]) -> None:
-    """Best, median and range of each side, and whether the grouped side
-    is slower or faster than the per-stem side beyond both spreads."""
-    for name, ms in times.items():
-        log(f"[stem axis] {tag}, {name}: best {min(ms):.3f}, median "
-            f"{float(np.median(ms)):.3f} ms (range {min(ms):.3f}-{max(ms):.3f}, "
-            f"{len(ms)} samples)")
-    (_, loop), (_, grp) = times.items()
-    if min(grp) > max(loop):
-        verdict = "grouped SLOWER than the per-stem loop beyond the spread"
-    elif max(grp) < min(loop):
-        verdict = (f"grouped faster, {float(np.median(loop)) / float(np.median(grp)):.2f}x "
-                   f"by the medians")
-    else:
-        verdict = "within the spread of repeated calls"
-    log(f"[stem axis] {tag}: {verdict}")
-
-
-def kernel_split(tag: str, fn) -> None:
-    """Device kernels of one fn() (after a warm call) split into library
-    convolutions (cuDNN and its layout helpers), copies (copy, cat, the
-    padding's fill), elementwise passes (other torch kernels) and the rest,
-    logged as launches and ms a class with the largest kernels and the
-    torch ops whose own kernels took the most device time."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    split = {k: [0, 0.0] for k in ("library convolutions", "copies",
-                                   "elementwise", "other")}
-    by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        low = e.name.lower()
-        if "at::native" in low:
-            cls = ("copies" if any(k in low for k in ("copy", "cat", "fill"))
-                   else "elementwise")
-        elif "memcpy" in low or "memset" in low:
-            cls = "copies"
-        elif "spleeterrt" not in low and any(
-                k in low for k in (*CONV_KEYS, "nhwc", "nchw")):
-            cls = "library convolutions"
-        else:
-            cls = "other"
-        ms = e.device_time_total / 1e3
-        split[cls][0] += 1
-        split[cls][1] += ms
-        by_name[e.name[:90]] += ms
-    if not by_name:
-        raise AssertionError(f"{tag}: the profiler caught no device kernel")
-    log(f"[stem axis] {tag}: " + ", ".join(
-        f"{cls} {n} kernels {ms:.3f} ms" for cls, (n, ms) in split.items()))
-    for name, ms in by_name.most_common(6):
-        log(f"[stem axis]   {ms:9.3f} ms  {name}")
-    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                  for e in prof.key_averages()
-                  if e.key.startswith("aten::") and e.self_device_time_total > 0),
-                 reverse=True)
-    log(f"[stem axis] {tag}, device time by torch op: " + ", ".join(
-        f"{key} x{n} {ms:.3f} ms" for ms, n, key in ops[:10]))
-
-
-def rel_diff(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max |got - ref| / max |ref|, in float32."""
-    ref = ref.float()
-    return float((got.float() - ref).abs().max() / ref.abs().max())
-
-
-def held_to_loop(tag: str, grouped_fn, loop_fn, dtype) -> None:
-    """Grouped against the per-stem loop on the same inputs under
-    deterministic cuDNN: fp32 within STEM_AXIS_F32_REL of the loop's peak;
-    bf16 finite, its difference logged."""
-    with cudnn_deterministic(True):
-        got, ref = grouped_fn(), loop_fn()
-    if got.shape != ref.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"{tag}: shape {tuple(got.shape)} vs "
-                             f"{tuple(ref.shape)} or non-finite")
-    d = rel_diff(got, ref)
-    bound = STEM_AXIS_F32_REL if dtype == torch.float32 else None
-    log(f"[stem axis] {tag}, {str(dtype)[6:]}: grouped vs per-stem loop "
-        f"{d:.3e} of the peak" + (f" (<= {bound})" if bound else ""))
-    if bound is not None and not d <= bound:
-        raise AssertionError(f"{tag}: grouped {d} of the peak from the loop")
-
-
-def offline_mag(cfg, seconds: float, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(pre-padded audio, K1's magnitude tiles) of `seconds` of seeded
-    noise at cfg."""
-    rng = np.random.default_rng(SEED)
-    audio = torch.as_tensor(rng.standard_normal((2, int(seconds * SR))) * 0.3,
-                            dtype=torch.float32, device=device)
-    padded = transform.pad_offline(audio, cfg.transform).contiguous()
-    _, n_comp, n_req = separate.frame_counts(padded.shape[-1], cfg)
-    _, mag = stft_fused.stft4096(
-        padded, transform.analysis_window(4096, device=device), n_comp, n_req,
-        cfg.bin_limit, cfg.time_step)
-    return padded, mag
-
-
-def stem_axis_mid_trunk(stacked, mag, smi: str) -> None:
-    """The mid trunk at the 4-stem 300 s shape: the grouped form beside
-    model.mid_trunk's loop over stems: the difference, times, the kernel
-    split and the bound."""
-    for dtype in (torch.float32, torch.bfloat16):
-        skips, act4 = model.kernel_encoder(stacked, mag, 4, STEM_MODE_4, dtype)
-        args = (stacked, act4, skips[3], STEM_MODE_4, dtype)
-        del skips
-        tag = f"mid trunk {tuple(act4.shape)}"
-        held_to_loop(tag, lambda: grouped_mid_trunk(*args),
-                     lambda: model.mid_trunk(*args), dtype)
-        fns = {"per-stem loop (model.mid_trunk)": lambda: model.mid_trunk(*args),
-               "grouped": lambda: grouped_mid_trunk(*args)}
-        log_turns(f"{tag}, {str(dtype)[6:]}", turns_ms(fns))
-        for name, fn in fns.items():
-            kernel_split(f"{tag}, {str(dtype)[6:]}, {name}", fn)
-        ops, nbytes_ = mid_trunk_work(act4, model.num_stems(stacked))
-        by_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
-        by_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
-        log(f"[stem axis] {tag}, {str(dtype)[6:]}: bound "
-            f"{max(by_ops, by_bytes):.4f} ms (by "
-            f"{'operations' if by_ops >= by_bytes else 'bytes'}: "
-            f"{ops / 1e12:.4f} TFLOP, {nbytes_ / 1e6:.1f} MB) ({smi})")
-        # Library convolution kernels of the grouped mid trunk at 4 stems
-        # beside one stem's: cuDNN may run a grouped convolution as one
-        # kernel or as a kernel a group with channel slices around it.
-        if dtype == torch.bfloat16:
-            one = model.with_stem_axis(model.stem_params(stacked, 0))
-            b = act4.shape[0] // model.num_stems(stacked)
-            four = library_conv_kernels(lambda: grouped_mid_trunk(*args))
-            single = library_conv_kernels(lambda: grouped_mid_trunk(
-                one, act4[:b], act4[:b], STEM_MODE_4, dtype))
-            log(f"[stem axis] library convolution kernels: grouped mid trunk "
-                f"of 4 stems {sum(four.values())}, of one stem "
-                f"{sum(single.values())}; 4 stems: " + ", ".join(
-                    f"{n} x {name[:60]}" for name, n in four.most_common(8)))
-        del args, act4
-
-
-def stem_axis_graph(stacked, padded, cfg) -> None:
-    """The 4-stem 300 s offline graph with model.mid_trunk's loop over stems
-    beside the same graph with the grouped mid trunk patched in, its
-    launches and idle share."""
-    run = lambda: separate.separate_4stem(stacked, padded, cfg)
-    kernels.reset_launch_counts()
-    run()
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    if launches != expected_launches(MAIN_PATH_LAUNCHES):
-        raise AssertionError(f"4-stem graph launches {launches}")
-    log(f"[stem axis] 300 s 4-stem graph launches {launches}")
-    log_turns("300 s 4-stem separate_4stem, bf16", turns_ms({
-        "per-stem mid trunk (model.mid_trunk)": run,
-        "grouped mid trunk": with_attr(model, "mid_trunk", grouped_mid_trunk,
-                                       run)}))
-    profile_device("one 300 s 4-stem separation, per-stem mid trunk", run)
-
-
-def stem_axis_round3(device) -> None:
-    """The round-3 trunk (K2/K3 fronts, then enc4..up5 grouped) beside the
-    per-stem trunk_tail loop: the 2-stem exe config at 300 s (one net, 26
-    images) and the 4-stem VST config at 30 s (24 images)."""
-    cases = []
-    cfg2 = exe_config(2, torch.bfloat16)
-    params = cli.load_weights(None, True, SEED, cfg2, device)["params"]
-    cases.append(("round-3 trunk, 2 stems exe 300 s",
-                  model.with_stem_axis(params), STEM_MODE_2,
-                  offline_mag(cfg2, BENCH_SECONDS[-1], device)[1]))
-    cfg4 = vst_config(torch.bfloat16)
-    cases.append(("round-3 trunk, 4 stems VST 30 s", random_stacked(device),
-                  STEM_MODE_4, offline_mag(cfg4, SMOKE_SECONDS, device)[1]))
-    for tag, stacked, mode, mag in cases:
-        if not model.use_pallas_encoder(stacked, mag):
-            raise AssertionError(f"{tag}: the round-3 encoder gate is off")
-        tag = f"{tag} ({model.num_stems(stacked) * mag.shape[0]} images)"
-        fns = {dtype: {
-            "per-stem loop": functools.partial(per_stem_trunk, stacked, mag,
-                                               mode, dtype),
-            "grouped": functools.partial(model.multi_stem_trunk, stacked, mag,
-                                         mode, dtype)}
-            for dtype in (torch.float32, torch.bfloat16)}
-        for dtype, pair in fns.items():
-            held_to_loop(tag, pair["grouped"], pair["per-stem loop"], dtype)
-        log_turns(f"{tag}, bfloat16", turns_ms(fns[torch.bfloat16]))
-
-
-def stem_axis_canonical(stacked, device) -> None:
-    """The canonical route at 30 s of the 4-stem VST graph (24 images),
-    grouped beside each stem's unet_forward_nchw."""
-    mag = offline_mag(vst_config(torch.bfloat16), SMOKE_SECONDS, device)[1]
-    tag = f"canonical route, 4 stems VST 30 s ({4 * mag.shape[0]} images)"
-    fns = {dtype: {
-        "per-stem loop": functools.partial(per_stem_masks, stacked, mag,
-                                           STEM_MODE_4, dtype),
-        "grouped": functools.partial(model.multi_stem_masks_canonical, stacked,
-                                     mag, STEM_MODE_4, dtype)}
-        for dtype in (torch.float32, torch.bfloat16)}
-    for dtype, pair in fns.items():
-        held_to_loop(tag, pair["grouped"], pair["per-stem loop"], dtype)
-    log_turns(f"{tag}, bfloat16", turns_ms(fns[torch.bfloat16]))
-
-
-def stem_axis_train(device, smi: str) -> None:
-    """The bf16 train step at phase 17's shape on a seeded batch, through
-    the grouped canonical route beside the per-stem loop (patched in for
-    the call), and a profile of one grouped step."""
-    cfg = train_config(torch.bfloat16)
-    state = train.init_train_state(training_nets(SEED, device), TRAIN_LR, ema=True)
-    step = train.make_train_step(STEM_MODE_4, cfg.compute_dtype, TRAIN_EMA)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    s, b, t, f = len(TRAIN_STEMS), TRAIN_BATCH, cfg.time_step, cfg.bin_limit
-    mix = torch.rand((b, t, f, 2), generator=gen, device=device)
-    tgt = torch.rand((s, b, t, f, 2), generator=gen, device=device) * mix
-    active = torch.ones((s, b), device=device)
-    run = lambda: step(state, mix, tgt, active)
-    times = turns_ms({"per-stem loop": with_attr(
-        model, "multi_stem_masks_canonical", per_stem_masks, run),
-        "grouped": run})
-    log_turns(f"bf16 train step, {s} stems x {b} x {t} x {f}", times)
-    profile_device("one bf16 train step, grouped canonical route", run)
-    loss = float(run()[1])
-    if not math.isfinite(loss):
-        raise AssertionError(f"train step loss {loss}")
-    log(f"[stem axis] train step loss finite ({loss:.5f}) ({smi})")
-
-
-def phase_stem_axis(device, smi: str) -> None:
-    """Phase 20: the grouped stages (core/grouped.py) beside the per-stem
-    loops they replaced."""
-    t0 = time.perf_counter()
-    cfg = vst_config(torch.bfloat16)
-    stacked = random_stacked(device)
-    padded, mag = offline_mag(cfg, BENCH_SECONDS[-1], device)
-    stem_axis_mid_trunk(stacked, mag, smi)
-    del mag
-    stem_axis_graph(stacked, padded, cfg)
-    del padded
-    stem_axis_round3(device)
-    stem_axis_canonical(stacked, device)
-    stem_axis_train(device, smi)
-    log(f"[stem axis] phase done in {time.perf_counter() - t0:.3f} s; {smi}")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3466,7 +2952,6 @@ def main() -> int:
     phase_quality(cli_stems, device)
     phase_stream_quality(device)
     overlap2_launches = phase_overlap2(device)
-    phase_timing(device)
     phase_stream_timing(device)
     phase_timing_2stem(device)
     phase_batch_timing(device)
@@ -3474,7 +2959,6 @@ def main() -> int:
     phase_mesh(device, smi)
     with tempfile.TemporaryDirectory() as workdir:
         phase_host(workdir, device, smi)
-    phase_stem_axis(device, smi)
     # Each kernel's launches on the path that runs it: the offline CLI for
     # K1-K7, the overlap-2 graphs for K8 (2 stems) and K9 (4 stems), the
     # 2-stem CLI's round-3 route for K10, the streaming CLI for the

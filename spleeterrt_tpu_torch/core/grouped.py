@@ -20,7 +20,7 @@ geometry and fusion order are core/model.py's
 
 One library call is not one device kernel: at the U-Net's widths cuDNN
 runs a grouped bf16 convolution as one convolution kernel a group with
-channel-slice copies around them (chip_smoke.py phase 20, PERF.md). What
+channel-slice copies around them (PERF.md §6). What
 grouping saves is the torch-side work: one weight cast, bias, batch norm,
 activation and concat a layer instead of one a stem.
 """

@@ -404,7 +404,8 @@ def mid_trunk(
     layers, one grouped convolution a layer) made the 4-stem 300 s graph
     slower on an H100 beyond the spread of repeated calls: cuDNN runs each
     grouped convolution at these widths as a convolution a group with
-    channel-slice copies around them (chip_smoke.py phase 20, PERF.md)."""
+    channel-slice copies around them (the 300 s graph took 16.185 ms
+    grouped against 15.325 ms with the loop; PERF.md §6)."""
     cast = lambda a: a.to(compute_dtype)
     n_stems = num_stems(stacked_params)
     b = act4.shape[0] // n_stems

@@ -260,7 +260,8 @@ def test_library_convolutions_a_layer(stage, n_calls, monkeypatch):
     calls (enc4..enc6, up1..up5), not 32, and the canonical route 13 (six
     encoder, six decoder, the final conv), not 52. The mid trunk keeps its
     loop over stems, 5 calls a stem: its grouped form made the 4-stem
-    graph slower on an H100 (chip_smoke.py phase 20). Every call reads
+    graph slower on an H100 (16.185 ms against 15.325 ms with the loop
+    at 300 s; PERF.md §6). Every call reads
     channels_last activations."""
     s = 4
     stacked = _port_stacked(_jax_stacked(s))
