@@ -77,8 +77,12 @@ Phases, each of which raises (non-zero exit) on failure:
    images (the round-3 gate's limit), and a profile of the route.
 12. The HTTP server (runtime/server.py) started with make_server on port
    0 in a thread on the card (4 stems, VST config, fp32): /healthz;
-   /separate on the 30 s WAV as npz (the main path's launch counts) and
-   wav8ch (X-Stem-Order); /separate_batch with three tracks of 10, 20 and
+   /separate on the 30 s WAV as npz and wav8ch (X-Stem-Order), after one
+   eager separate.separate of it: the npz request captures the length's
+   graph (core/replay.py; its warm-up launches the main path once, K7 runs
+   after the graph) and the wav8ch one replays it (K7 its one wrapper
+   launch), each mode read from the replay counter; /separate_batch with
+   three tracks of 10, 20 and
    30 s, which launches K1 and K7 once; stems >= 80 dB against
    separate.separate per track; 400 (garbage WAV, a stem count the server
    does not hold, a body that is not an NPZ), 413 and 404.
@@ -142,12 +146,20 @@ Phases, each of which raises (non-zero exit) on failure:
    (libmp3lame by ctypes, else hand-built frames of silence) goes through
    the 4-stem CLI (VST config, bf16): one 4-stem run's launch counts and
    four finite stems of the decoded length; else "mp3: libmpg123 absent".
-   The 300 s 4-stem bf16 graph under StageTimer(sync=...) beside the CUDA
-   events of the same call (the difference within the host's enqueue
-   time); a profiler_trace of it must name stft4096_kernel,
-   enc1_mma_kernel and masked_istft4096_kernel and no FMA encoder kernel
-   (bf16 enc1 runs the tensor-core template alone); dump_spectrogram_pngs of
-   K1's first magnitude tile must write PNGs holding its pixels. Then
+   The 300 s 4-stem bf16 separate.separate, a call that replays its
+   captured CUDA graph (core/replay.py; the length's first call ran
+   eager, its second captured), under StageTimer(sync=...) beside the
+   CUDA events of the same call (the difference within the host's enqueue
+   time); a profiler_trace of three more replays must name
+   stft4096_kernel, enc1_mma_kernel and masked_istft4096_kernel and no FMA
+   encoder kernel (bf16 enc1 runs the tensor-core template alone), hold
+   each main-path kernel's events of three calls (K1, K2, K4, K5 and K6
+   once a call and K3 three times, from one graph launch a call; K7 once,
+   the one wrapper launch, after it; a lead-in call before them takes
+   the events a trace drops at its start), and the replay counter must
+   count every one of those calls a replay;
+   dump_spectrogram_pngs of K1's first magnitude tile must write PNGs
+   holding its pixels. Then
    /separate_batch over ranks (runtime/server.py with a mesh): at world 1
    over NCCL, phase 12's three tracks (4 stems, VST config, fp32,
    deterministic cuDNN) bit for bit with the single-process service and
@@ -191,6 +203,7 @@ import json
 import math
 import os
 import queue
+import re
 import struct
 import subprocess
 import sys
@@ -220,6 +233,7 @@ from spleeterrt_tpu_torch.core import (
     checkpoint,
     grouped,
     model,
+    replay,
     roformer,
     separate,
     train,
@@ -1103,6 +1117,15 @@ def expected_launches(per_run: dict, runs: int = 1) -> dict:
     return {name: runs * per_run.get(name, 0) for name in kernels.KERNELS}
 
 
+def replay_mode(before: dict) -> str:
+    """The mode (core/replay.py) of the one separation run since the
+    replay counter read `before`."""
+    moved = [m for m, c in replay.counts().items() if c != before[m]]
+    if len(moved) != 1 or replay.counts()[moved[0]] != before[moved[0]] + 1:
+        raise AssertionError(f"not one separation: {before} -> {replay.counts()}")
+    return moved[0]
+
+
 def phase_stream_cli(workdir: str, device) -> dict:
     """The streaming CLI at the VST config on the 30 s WAV; returns the
     launch counts of its run."""
@@ -1890,9 +1913,9 @@ def http(url: str, data: bytes | None = None) -> tuple[int, dict, bytes]:
 def phase_server(workdir: str, device) -> None:
     """make_server on port 0 in a thread, on the card (4 stems, VST config,
     fp32 so that its stems are held to SNR_FP32_MIN_DB against
-    separate.separate): /healthz; /separate as npz and wav8ch on the 30 s
-    WAV; /separate_batch with three tracks, one K1 and one K7 launch; 400,
-    413 and 404."""
+    separate.separate): /healthz; /separate as npz (a capture) and wav8ch
+    (a replay) on the 30 s WAV; /separate_batch with three tracks, one K1
+    and one K7 launch; 400, 413 and 404."""
     cfg = vst_config(torch.float32)
     stacked = random_stacked(device)
     service = server.SeparationService(cfg, {"stacked_params": stacked},
@@ -1914,31 +1937,47 @@ def phase_server(workdir: str, device) -> None:
         audio_io.write_wav(song, x)
         with open(song, "rb") as f:
             wav = f.read()
+        before = replay.counts()
         solo = {k: v.cpu().numpy() for k, v in separate.separate(
             x, stacked_params=stacked, cfg=cfg, device=device).items()}
+        if replay_mode(before) != "eager":
+            raise AssertionError(f"server: the length's first call ran {replay_mode(before)}")
+        # The length's second call captures its graph: the capture's warm-up
+        # launches K1-K6 once through their wrappers, the captured and
+        # replayed launches count nothing, and K7 runs after the graph.
         kernels.reset_launch_counts()
+        before = replay.counts()
         t0 = time.perf_counter()
         code, _, body = http(f"{base}/separate?format=npz", wav)
         wall = (time.perf_counter() - t0) * 1e3
-        launches = kernels.launch_counts()
-        if code != 200 or launches != expected_launches(MAIN_PATH_LAUNCHES):
-            raise AssertionError(f"server /separate: {code}, launches {launches}")
+        launches, mode = kernels.launch_counts(), replay_mode(before)
+        if (code != 200 or mode != "capture"
+                or launches != expected_launches(MAIN_PATH_LAUNCHES)):
+            raise AssertionError(f"server /separate: {code}, {mode}, launches {launches}")
         out = np.load(io.BytesIO(body))
         worst = min(snr_db(out[k], solo[k]) for k in cfg.stem_names)
         log(f"[server] /separate npz {code} in {wall:.3f} ms "
-            f"({SMOKE_SECONDS:.0f} s, 4 stems), "
-            f"launches {launches}; SNR vs separate.separate >= {worst:.2f} dB")
+            f"({SMOKE_SECONDS:.0f} s, 4 stems), a {mode} (separate.separate "
+            f"ran the length eager before it), launches {launches}; SNR vs "
+            f"separate.separate >= {worst:.2f} dB")
         if set(out.files) != set(cfg.stem_names) or not worst >= SNR_FP32_MIN_DB:
             raise AssertionError("server /separate: stems")
-        # Another request: cuDNN's transposed convolutions in the mid trunk
+        # Another request replays the graph: K7, after it, is its one
+        # wrapper launch. cuDNN's transposed convolutions in the mid trunk
         # need not sum in the same order twice, so compare by SNR.
+        kernels.reset_launch_counts()
+        before = replay.counts()
         code, headers, body = http(f"{base}/separate", wav)
+        launches, mode = kernels.launch_counts(), replay_mode(before)
         y = audio_io.read_wav(body).samples
         order = headers.get("X-Stem-Order")
         worst = min(snr_db(y[2 * s : 2 * s + 2], solo[k])
                     for s, k in enumerate(cfg.stem_names))
         log(f"[server] /separate wav8ch {code}, {y.shape[0]} channels, "
-            f"X-Stem-Order {order}; SNR vs separate.separate >= {worst:.2f} dB")
+            f"X-Stem-Order {order}, a {mode}, launches {launches}; SNR vs "
+            f"separate.separate >= {worst:.2f} dB")
+        if mode != "replay" or launches != expected_launches({"masked_istft4096": 1}):
+            raise AssertionError(f"server /separate wav8ch: {mode}, launches {launches}")
         if (code != 200 or order != ",".join(cfg.stem_names)
                 or y.shape != (8, x.shape[1]) or not worst >= SNR_FP32_MIN_DB):
             raise AssertionError("server /separate wav8ch")
@@ -2544,6 +2583,12 @@ FLAC_SECONDS = 60.0  # the native vs Python FLAC decode
 MP3_SECONDS = SMOKE_SECONDS
 TRACE_KERNELS = ("stft4096_kernel", "enc1_mma_kernel", "masked_istft4096_kernel")
 TRACE_RUNS = 3  # separations inside one profiler_trace
+# MAIN_PATH_LAUNCHES' kernels as a trace names them (K4 and K5 are both
+# up_mma_kernel).
+KERNEL_FUNCTIONS = {"stft4096": "stft4096_kernel", "enc1": "enc1_mma_kernel",
+                    "enc_s2": "enc_mma_kernel", "up4": "up_mma_kernel",
+                    "up5": "up_mma_kernel", "head": "head_mma_kernel",
+                    "masked_istft4096": "masked_istft4096_kernel"}
 RANKED_BF16_MIN_DB = 60.0  # two ranks vs one process, bf16
 RANKED_RANKS = 2
 RANKED_DEADLINE_S = 400
@@ -2615,26 +2660,44 @@ def phase_mp3(workdir: str, device) -> None:
     log(f"[mp3] 4 finite stems of shape (2, {n}) written")
 
 
-def trace_kernel_names(trace_path: str) -> set[str]:
+def trace_events(trace_path: str) -> tuple[list[str], int]:
+    """(the name of every kernel event, the cudaGraphLaunch calls) of a
+    profiler_trace."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    return {e.get("name", "") for e in events
-            if str(e.get("cat", "")).lower() == "kernel"}
+    kernel_names = [e.get("name", "") for e in events
+                    if str(e.get("cat", "")).lower() == "kernel"]
+    graph_launches = sum(1 for e in events
+                         if str(e.get("cat", "")).lower() == "cuda_runtime"
+                         and e.get("name", "").startswith("cudaGraphLaunch"))
+    return kernel_names, graph_launches
+
+
+def count_kernel(function: str, kernel_names: list[str]) -> int:
+    """Events of the kernel `function`, named as a whole identifier (K1's
+    name lies inside K7's)."""
+    pattern = re.compile(rf"(?<![A-Za-z0-9_]){function}(?![A-Za-z0-9_])")
+    return sum(1 for n in kernel_names if pattern.search(n))
 
 
 def phase_stage_timing(workdir: str, device, smi: str) -> None:
-    """The 300 s 4-stem bf16 graph under StageTimer(sync=...) beside the
-    CUDA-event time of the same call; a profiler_trace of it that names K1,
-    bf16 K2 and K7 and no FMA encoder kernel; K1's magnitude tiles through
-    dump_spectrogram_pngs."""
+    """The 300 s 4-stem bf16 separate.separate, replaying its captured
+    graph, under StageTimer(sync=...) beside the CUDA-event time of the
+    same call; a profiler_trace of three replays that names K1, bf16 K2
+    and K7 and no FMA encoder kernel, counts every main-path kernel's
+    events against MAIN_PATH_LAUNCHES, one graph launch a call and K7 as
+    the one wrapper launch, with the replay counter's count; K1's
+    magnitude tiles through dump_spectrogram_pngs."""
     cfg = vst_config(torch.bfloat16)
     stacked = random_stacked(device)
     seconds = TRACK_SECONDS
-    padded = transform.pad_offline(
-        torch.from_numpy(synthetic_audio(seconds)).to(device),
-        cfg.transform).contiguous()
-    run = lambda: separate.separate_4stem(stacked, padded, cfg)
-    run()  # warm
+    audio = torch.from_numpy(synthetic_audio(seconds)).to(device)
+    padded = transform.pad_offline(audio, cfg.transform).contiguous()
+    run = lambda: separate.separate(audio, stacked_params=stacked, cfg=cfg,
+                                    device=device)
+    run()  # the length's first call runs eager
+    run()  # the second captures its graph (core/replay.py); the rest replay
+    replay.reset_counts()
     timer = timing.StageTimer(verbose=False)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -2659,23 +2722,51 @@ def phase_stage_timing(workdir: str, device, smi: str) -> None:
                              f"{event_ms:.3f} ms: not within the host's share")
 
     # A capture can come back without some device kernels (PERF.md,
-    # Findings, PRs 6 and 12), so the trace holds TRACE_RUNS separations
-    # and is retaken, at most three times in all, until it names each one.
+    # Findings, PRs 6 and 12; on torch 2.11 the first kernel of the first
+    # replay), so the trace holds a lead-in separation and TRACE_RUNS more
+    # and is retaken, at most three times in all, until it names each one
+    # and holds each main-path kernel's events of TRACE_RUNS calls at
+    # least and of the calls made at most: K1, K2, K4, K5 and K6 once a
+    # call and K3 three times inside the graph, K7 once after it.
+    per_call = dict.fromkeys(KERNEL_FUNCTIONS.values(), 0)
+    for name, n in MAIN_PATH_LAUNCHES.items():
+        per_call[KERNEL_FUNCTIONS[name]] += n
+    want = {f: n * TRACE_RUNS for f, n in per_call.items()}
     for attempt in range(1, 4):
         trace_dir = os.path.join(workdir, f"trace{attempt}")
+        kernels.reset_launch_counts()
         with timing.profiler_trace(trace_dir):
-            for _ in range(TRACE_RUNS):
+            for _ in range(1 + TRACE_RUNS):
                 run()
             torch.cuda.synchronize()
-        names = trace_kernel_names(os.path.join(trace_dir, timing.TRACE_FILE))
+        launches = kernels.launch_counts()
+        kernel_names, graph_launches = trace_events(
+            os.path.join(trace_dir, timing.TRACE_FILE))
+        names = set(kernel_names)
         missing = [k for k in TRACE_KERNELS if not any(k in n for n in names)]
+        found = {f: count_kernel(f, kernel_names) for f in want}
         log(f"[profiler_trace] capture {attempt}: {len(names)} kernel names in "
             f"{timing.TRACE_FILE}; " + ", ".join(
                 f"{k}: {'MISSING' if k in missing else 'yes'}" for k in TRACE_KERNELS))
-        if not missing:
+        log(f"[profiler_trace] kernels of 1 + {TRACE_RUNS} replayed calls: "
+            f"events {found} (at least {want}, at most one call more); "
+            f"{graph_launches} cudaGraphLaunch; wrapper launches {launches}")
+        held = all(want[f] <= found[f] <= want[f] + per_call[f] for f in want)
+        if not missing and held:
             break
     else:
-        raise AssertionError(f"profiler_trace never named {missing}")
+        raise AssertionError(f"profiler_trace never named {missing} or held "
+                             f"{want}: {found}")
+    # K1-K6 ran from the graph, one launch a call; K7 from its wrapper.
+    if (graph_launches != 1 + TRACE_RUNS or launches != expected_launches(
+            {"masked_istft4096": 1}, 1 + TRACE_RUNS)):
+        raise AssertionError(f"replayed calls: {graph_launches} graph launches, "
+                             f"wrapper launches {launches}")
+    counts = replay.counts()
+    log(f"[replay] {counts['replay']} of {sum(counts.values())} separations "
+        f"replayed one captured graph ({counts})")
+    if counts["replay"] != sum(counts.values()):
+        raise AssertionError(f"a separation of a captured length did not replay: {counts}")
     # bf16 enc1 runs the tensor-core template and no FMA encoder kernel.
     fma = sorted(n for n in names if "enc_conv_kernel" in n)
     if fma:

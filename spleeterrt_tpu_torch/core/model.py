@@ -93,6 +93,13 @@ PALLAS_HEAD_MAX_BATCH = 64
 PALLAS_ENCODER_MAX_BATCH = 64
 
 
+def route_switches() -> tuple:
+    """The switches above as they stand: with the shapes, they pick the
+    route a call takes (part of a replayed call's key, core/replay.py)."""
+    return (FORCE_PACKED_UNET, FORCE_PALLAS_HEAD, FORCE_PALLAS_ENCODER,
+            PALLAS_HEAD_MAX_BATCH, PALLAS_ENCODER_MAX_BATCH)
+
+
 def init_params(
     generator: torch.Generator, dtype=torch.float32, device=None
 ) -> Params:

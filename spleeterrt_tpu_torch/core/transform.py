@@ -26,6 +26,8 @@ kernel; on CPU tensors that is the kernel's plain torch.fft version.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -34,20 +36,56 @@ from spleeterrt_tpu_torch.config import TransformConfig
 from spleeterrt_tpu_torch.kernels import pallas_fft
 
 
-def analysis_window(
-    fft_size: int, dtype=torch.float32, device=None
-) -> torch.Tensor:
-    """Periodic Hann with half-sample offset (Executable/stftFix.c:48-57)."""
+@functools.cache
+def device_constant(build, *args):
+    """`build(*args)`, made once for each distinct `args` (a device among
+    them) and shared from then on by every caller, so nothing may write to
+    it: the windows and out-of-band weights the graphs hand their kernels.
+    Built with inference mode off, so that a constant first made under
+    `torch.inference_mode()` still serves a differentiated call.
+
+    Only the first call copies from the host; the calls after it take the
+    same tensor, so a graph on the card neither copies nor syncs between
+    its pad and its crop, and can be captured (core/replay.py)."""
+    with torch.inference_mode(False):
+        return build(*args)
+
+
+def _hann(fft_size: int, dtype, device) -> torch.Tensor:
     i = np.arange(fft_size, dtype=np.float64)
     w = 0.5 * (1.0 - np.cos(2.0 * np.pi * (i + 0.5) / fft_size))
     return torch.as_tensor(w, dtype=dtype, device=device)
 
 
+def _post(fft_size: int, gain: float, dtype, device) -> torch.Tensor:
+    return _hann(fft_size, dtype, device) * gain
+
+
+def _float32(values: tuple[float, ...], device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def analysis_window(
+    fft_size: int, dtype=torch.float32, device=None
+) -> torch.Tensor:
+    """Periodic Hann with half-sample offset (Executable/stftFix.c:48-57);
+    one shared tensor a size, dtype and device (`device_constant`)."""
+    return device_constant(_hann, fft_size, dtype, device)
+
+
 def synthesis_window(
     cfg: TransformConfig, dtype=torch.float32, device=None
 ) -> torch.Tensor:
-    """Post window: Hann * 2/3 for LAP=4 (Executable/stftFix.c:64-75,310-312)."""
-    return analysis_window(cfg.fft_size, dtype, device) * cfg.synthesis_gain
+    """Post window: Hann * 2/3 for LAP=4 (Executable/stftFix.c:64-75,310-312);
+    shared as `analysis_window` is."""
+    return device_constant(_post, cfg.fft_size, cfg.synthesis_gain, dtype,
+                           device)
+
+
+def out_band_tensor(out_band, device) -> torch.Tensor:
+    """The out-of-band weights as a float32 tensor on `device`, one shared
+    tensor a set of weights and device (`device_constant`)."""
+    return device_constant(_float32, tuple(out_band), device)
 
 
 def num_output_frames(data_size: int, cfg: TransformConfig) -> int:

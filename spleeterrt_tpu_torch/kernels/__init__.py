@@ -14,7 +14,9 @@ raises for a CUDA tensor.
 Launch counts live here, one per kernel name, so one place shows whether a
 run went through the kernels: `reset_launch_counts()` before the run,
 `launch_counts()` after. A wrapper counts a launch where it launches its
-kernel, never for a plain call. Each wrapper call is also one span
+kernel, never for a plain call, nor where it records its kernel into a
+CUDA graph being captured (a replayed offline call launches one graph;
+core/replay.py counts those). Each wrapper call is also one span
 `kernels.<name>` under the registry's name (utils/timing.py), over its
 checks, weight packing and launch, or its plain version.
 
@@ -45,7 +47,11 @@ _launches = dict.fromkeys(KERNELS, 0)
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    # A launch recorded into a CUDA graph being captured is not made; the
+    # graph's replays are counted by core/replay.py.
+    if not (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        _launches[name] += 1
 
 
 def reset_launch_counts() -> None:

@@ -101,7 +101,7 @@ def separate_4stem_timesharded(
         masks = multi_stem_masks(stacked_params, mag, STEM_MODE_4,
                                  cfg.compute_dtype, cfg.sigmoid)
         y = stft_fused.masked_istft4096(
-            spec, masks, torch.tensor(out_band, dtype=torch.float32, device=dev),
+            spec, masks, transform.out_band_tensor(out_band, dev),
             transform.synthesis_window(cfg.transform, device=dev), n_req,
         )  # (S, 2, c + HALO)
 

@@ -122,7 +122,7 @@ def separate_4stem_chunked(
     padded = np.zeros((2, n_chunks * chunk_len + halo), np.float32)
     padded[:, preshift : preshift + n] = audio[:, :n]
     dev = stacked_params["up7"]["w"].device
-    ob = torch.tensor(out_band, dtype=torch.float32, device=dev)
+    ob = transform.out_band_tensor(out_band, dev)
     out = np.zeros((num_stems(stacked_params), 2, n_chunks * chunk_len + halo),
                    np.float32)
     pending = None  # (offset, host tensor, event) of the chunk in flight

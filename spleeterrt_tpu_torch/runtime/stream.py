@@ -34,14 +34,15 @@ for drums, accompaniment and vocals, 0.0 for bass
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from spleeterrt_tpu_torch.config import STEM_MODE_4, SeparatorConfig, require_spleeter
+from spleeterrt_tpu_torch.core import transform
 from spleeterrt_tpu_torch.core.model import Params, multi_stem_masks
+from spleeterrt_tpu_torch.core.transform import out_band_tensor
 from spleeterrt_tpu_torch.kernels import stft_fused
 from spleeterrt_tpu_torch.kernels.stream_synthesis import stream_synthesis4096
 from spleeterrt_tpu_torch.utils.timing import span
@@ -91,20 +92,18 @@ def asymmetric_windows(
     return wa, ws[SAMPLE_SHIFT:]
 
 
-@functools.cache
-def window_tensors(
-    freq_temporal: float, device: torch.device
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """`asymmetric_windows` as float32 tensors on `device`."""
+def _window_tensors(freq_temporal: float, device) -> tuple[torch.Tensor, torch.Tensor]:
     wa, ws = asymmetric_windows(freq_temporal)
     return (torch.as_tensor(wa, dtype=torch.float32, device=device),
             torch.as_tensor(ws, dtype=torch.float32, device=device))
 
 
-@functools.cache
-def out_band_tensor(out_band: tuple[float, ...], device: torch.device) -> torch.Tensor:
-    """The out-of-band weights as a float32 tensor on `device`."""
-    return torch.tensor(out_band, dtype=torch.float32, device=device)
+def window_tensors(
+    freq_temporal: float, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`asymmetric_windows` as float32 tensors on `device`, made once
+    (transform.device_constant)."""
+    return transform.device_constant(_window_tensors, freq_temporal, device)
 
 
 class StreamState(NamedTuple):

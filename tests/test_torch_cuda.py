@@ -29,8 +29,14 @@ T = 1, 37 and 256 frames, bin limits 1, 512, 1536 and 2049, a carry in,
 twice, bit-identical); one streaming block step at K = 1; K1 and K7 with
 1 to 5 tracks folded into their rows at an odd tile count (each track bit
 for bit its lone launch); the 2-, 3- and 4-stem batch graphs' launch
-counts over three tracks; and every wrapper refusing a grid past CUDA's
-65535 blocks in y or z.
+counts over three tracks; every wrapper refusing a grid past CUDA's
+65535 blocks in y or z; and `separate.separate` replaying a captured
+CUDA graph (core/replay.py) at 30 to 35 s (one tile count, one graph),
+2 and 4 stems in bf16, bit for bit its eager answers under
+cudnn.deterministic, with kept answers intact after later replays,
+weights changed in place seen by the next replay, the counter's eager,
+capture and replay counts, and no wrapper launch counted for a capture or
+a replay.
 Where there is no CUDA device every test skips. On a machine with one
 (which may lack jax, which tests/conftest.py imports):
 
@@ -53,7 +59,7 @@ import torch
 
 from spleeterrt_tpu_torch import kernels
 from spleeterrt_tpu_torch.config import SeparatorConfig, TransformConfig
-from spleeterrt_tpu_torch.core import model, separate, transform, weights
+from spleeterrt_tpu_torch.core import model, replay, separate, transform, weights
 from spleeterrt_tpu_torch.kernels import (
     encoder,
     mask_head,
@@ -814,3 +820,117 @@ def test_wrappers_refuse_grids_past_the_limit(device):
                             transform.analysis_window(4096, device=device), 1,
                             64, 512, 64)
     assert not any(kernels.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# A repeated offline call replayed as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+REPLAY_CONFIGS = {  # the production routes: bf16, the packed U-Net
+    "2 stems": SeparatorConfig(bin_limit=1024, time_step=512, num_stems=2,
+                               compute_dtype=torch.bfloat16),
+    "4 stems": SeparatorConfig(bin_limit=1536, time_step=256, num_stems=4,
+                               compute_dtype=torch.bfloat16),
+}
+
+
+# 30 to 35 s: one tile count in both configurations, so one graph (run at
+# the tile count's longest padded length) serves every length.
+REPLAY_LENGTHS = (30 * 44100, 35 * 44100, 30 * 44100 + 1000, 33 * 44100, 31 * 44100)
+
+
+@pytest.fixture
+def deterministic(device):
+    """cuDNN's transposed convolutions (the mid trunk's) move their sums
+    from call to call unless deterministic."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield device
+    torch.backends.cudnn.deterministic = saved
+
+
+def _replay_case(device, graph):
+    cfg = REPLAY_CONFIGS[graph]
+    _, nets = _batch_nets(device, cfg.num_stems)
+    kwargs = ({"params": nets[0]} if cfg.num_stems == 2
+              else {"stacked_params": weights.stack_params(nets)})
+    gen = torch.Generator().manual_seed(cfg.num_stems)
+    tracks = [(torch.randn((2, n), generator=gen) * 0.2).to(device)
+              for n in REPLAY_LENGTHS]
+    return cfg, kwargs, tracks, lambda x: _composed(x, cfg, kwargs)
+
+
+def _composed(x, cfg, kwargs):
+    """`separate.separate`'s stems composed from the stem graph it runs
+    eager: pad, separate_2stem or separate_4stem, crop."""
+    preshift, _ = transform.offline_pad_sizes(x.shape[-1], cfg.transform)
+    padded = transform.pad_offline(x, cfg.transform).contiguous()
+    if cfg.num_stems == 2:
+        stems = separate.separate_2stem(kwargs["params"], padded, cfg)
+    else:
+        stems = separate.separate_4stem(kwargs["stacked_params"], padded, cfg)
+    return stems[..., preshift : preshift + x.shape[-1]]
+
+
+@pytest.mark.parametrize("graph", sorted(REPLAY_CONFIGS))
+def test_replays_equal_eager_calls_bit_for_bit(deterministic, graph):
+    """Five tracks of 30 to 35 s, lengths of one tile count: eager,
+    capture, then three replays, each answer kept; after the last call
+    every kept answer equals its track's stems from the eager stem graph
+    at its own padded length bit for bit (no answer aliases the graph's
+    memory), and the counter reads one eager call, one capture and three
+    replays."""
+    cfg, kwargs, tracks, eager = _replay_case(deterministic, graph)
+    replay.reset_counts()
+    kernels.reset_launch_counts()
+    kept = [separate.separate(t, cfg=cfg, device=deterministic, **kwargs)
+            for t in tracks]
+    assert replay.counts() == {"eager": 1, "capture": 1, "replay": 3, "fallback": 0}
+    # K1 ran from its wrapper for the eager call and the capture's warm-up;
+    # what the capture recorded and the replays are no wrapper launches.
+    # K7 is in the 2-stem graph, and runs after the 4-stem one, once a call.
+    assert kernels.launch_counts()["stft4096"] == 2
+    assert kernels.launch_counts()["masked_istft4096"] == (2 if cfg.num_stems == 2 else 5)
+    for t, got in zip(tracks, kept):
+        want = eager(t)
+        assert list(got) == list(cfg.stem_names)
+        for stem, y in zip(cfg.stem_names, want):
+            assert got[stem].shape == y.shape and got[stem].dtype == y.dtype
+            assert got[stem].device == y.device
+            assert torch.equal(got[stem], y), stem
+
+
+def test_a_replay_sees_weights_changed_in_place(deterministic):
+    """An optimiser-style in-place step on the weights between replays is
+    read by the next replay."""
+    cfg, kwargs, tracks, eager = _replay_case(deterministic, "2 stems")
+    for t in tracks[:3]:
+        separate.separate(t, cfg=cfg, device=deterministic, **kwargs)
+    with torch.no_grad():
+        for ly in kwargs["params"].values():
+            for v in ly.values():
+                v.mul_(0.9)
+    replay.reset_counts()
+    got = separate.separate(tracks[3], cfg=cfg, device=deterministic, **kwargs)
+    assert replay.counts()["replay"] == 1
+    for stem, y in zip(cfg.stem_names, eager(tracks[3])):
+        assert torch.equal(got[stem], y), stem
+
+
+def test_calls_that_never_replay(device):
+    """A lone length, a call from another stream than the default one and
+    a call autograd would record run eager, and are counted so."""
+    cfg, kwargs, tracks, _ = _replay_case(device, "2 stems")
+    replay.reset_counts()
+    separate.separate(tracks[0][:, :44100], cfg=cfg, device=device, **kwargs)
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        for t in tracks[:2]:
+            separate.separate(t, cfg=cfg, device=device, **kwargs)
+    torch.cuda.current_stream(device).wait_stream(side)
+    assert replay.counts() == {"eager": 3, "capture": 0, "replay": 0, "fallback": 0}
+    w = kwargs["params"]["down1"]["w"]
+    assert separate._replayable(tracks[0], [w])
+    w.requires_grad_()
+    assert not separate._replayable(tracks[0], [w])
+    w.requires_grad_(False)

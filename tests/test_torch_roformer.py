@@ -146,7 +146,8 @@ def test_spans_under_tracing(case):
     names = [s.name for s in spans]
     by_id = {s.span_id: s for s in spans}
     root = next(s for s in spans if s.name == "graph.separate")
-    assert root.attrs == {"arch": "bs-roformer", "stems": 2, "samples": N}
+    assert root.attrs == {"arch": "bs-roformer", "stems": 2, "samples": N,
+                          "graph": "eager"}
     model = next(s for s in spans if s.name == "model.roformer")
     assert model.attrs == {"chunks": 5, "batch": 3, "sdpa_backend": "cpu"}
     assert by_id[model.parent_id].name == "graph.separate"

@@ -98,7 +98,7 @@ def test_offline_call_spans_nest_under_one_graph_root(stems):
     spans = timing.take_spans()
     roots = [s for s in spans if s.parent_id is None]
     assert [r.name for r in roots] == ["graph.separate"]
-    assert roots[0].attrs == {"stems": stems, "samples": 20000}
+    assert roots[0].attrs == {"stems": stems, "samples": 20000, "graph": "eager"}
     _check_nesting(spans)
     names = [s.name for s in spans]
     want = ["graph.pad", "kernels.stft4096", "kernels.enc1", "kernels.enc_s2",
